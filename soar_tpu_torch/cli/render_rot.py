@@ -1,0 +1,126 @@
+"""Standalone inference: avatar -> 360° turntable renders (port of
+``soar_tpu.cli.render_rot``).
+
+Each of ``num_views`` azimuth steps composes the first frame's global
+orientation with a rotation about y (``global_orient_i = R_0 @
+Ry(2*pi*i/n)``), renders rgb / normal / occ / mask through the frame-0
+camera and writes pngs (+ mp4 when a video backend exists).
+
+    python -m soar_tpu_torch.cli.render_rot --synthetic --num-views 4
+
+Only ``--synthetic`` (the procedural fixture, no downloads) is ported;
+checkpoints and real captures arrive with later slices.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+
+
+def gt_camera(ds, frame_idx: int, device):
+    """The GT RGB camera of a frame, built as ``soar_tpu.train.trainer.
+    make_gt_batch`` builds ``gt_cam``: principal point via ``prcppoint``,
+    projection without cxcy, znear 0.1, zfar 100."""
+    import torch
+
+    from ..core.camera import camera_from_c2w
+
+    H, W = ds.image_size
+    fov = ds.frame_fovs(frame_idx)
+    c2w = torch.as_tensor(ds.gt_c2w(frame_idx), dtype=torch.float32, device=device)
+    return camera_from_c2w(
+        c2w,
+        fov["fovx"],
+        fov["fovy"],
+        znear=0.1,
+        zfar=100.0,
+        prcppoint=torch.tensor(
+            [fov["cx"] / W, fov["cy"] / H], dtype=torch.float32, device=device
+        ),
+    )
+
+
+def run_turntable(out_dir, ds, params, model, use_explicit, num_views=36,
+                  attrs=None, device="cuda"):
+    """Render and save the turntable; ``params`` / ``model`` must live on
+    ``device``.  Returns the per-view output dicts (tensors on ``device``)."""
+    import numpy as np
+    import torch
+
+    from .. import resolve_device
+    from ..avatar.renderer import RenderSettings, render_view
+    from ..core.transforms import batch_rodrigues, rotmat_to_rotvec
+    from ..train.evaluate import save_png, try_save_mp4
+
+    dev = resolve_device(device)
+    if params.xyz.device.type != dev.type:
+        raise ValueError(f"params live on {params.xyz.device}, not {dev}")
+    os.makedirs(out_dir, exist_ok=True)
+    settings = RenderSettings(use_explicit=use_explicit)
+    H, W = ds.image_size
+    cam = gt_camera(ds, 0, dev)
+
+    go0 = torch.as_tensor(
+        np.asarray(ds.smpl_params["global_orient"][0], np.float32), device=dev
+    ).reshape(1, 3)
+    R0 = batch_rodrigues(go0)[0]
+    bg = torch.ones(3, device=dev)
+
+    outs = []
+    buckets = {"rgb": [], "normal": [], "occ": [], "mask": []}
+    with torch.no_grad():
+        for i in range(num_views):
+            angle = 2.0 * np.pi * i / num_views
+            c, s = np.cos(angle), np.sin(angle)
+            Ry = torch.as_tensor(
+                np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32), device=dev
+            )
+            R = R0 @ Ry
+            out = render_view(
+                params, model, cam, (H, W), bg, 0, settings, attrs=attrs,
+                smpl_override={"global_orient": rotmat_to_rotvec(R)},
+            )
+            outs.append(out)
+            frame = {
+                "rgb": out["render"].cpu().numpy(),
+                "normal": out["normal"].cpu().numpy(),
+                "occ": out["occ"].cpu().numpy(),
+                "mask": out["mask"].cpu().numpy()[..., None].repeat(3, -1),
+            }
+            for name, img in frame.items():
+                buckets[name].append(img)
+                save_png(os.path.join(out_dir, f"{name}_{i:03d}.png"), img)
+
+    for name in ("rgb", "normal", "occ"):
+        if not try_save_mp4(os.path.join(out_dir, f"{name}.mp4"), buckets[name]):
+            print(f"[warn] no mp4 backend; {name} left as pngs")
+    print(f"wrote {num_views} views to {out_dir}")
+    return outs
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--synthetic", action="store_true",
+                    help="render the procedural fixture (the only ported input)")
+    ap.add_argument("--out", type=str, default="outputs/rot")
+    ap.add_argument("--num-views", type=int, default=36)
+    ap.add_argument("--use-explicit", action="store_true",
+                    help="explicit per-surfel colors/scales (the synthetic "
+                         "fixture always renders explicit, as in soar_tpu)")
+    ap.add_argument("--device", type=str, default="cuda")
+    args = ap.parse_args(argv)
+    if not args.synthetic:
+        ap.error("only --synthetic is ported so far (no checkpoints or captures)")
+
+    from ..data.dataset import make_synthetic_sequence
+
+    ds, (params, model) = make_synthetic_sequence(
+        num_frames=8, image_size=(128, 128), device=args.device
+    )
+    run_turntable(args.out, ds, params, model, True, args.num_views,
+                  device=args.device)
+
+
+if __name__ == "__main__":
+    main()

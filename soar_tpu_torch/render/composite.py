@@ -1,0 +1,131 @@
+"""Order-dependent alpha compositing, plain PyTorch (port of
+``soar_tpu.render.composite``).
+
+The reference's per-pixel front-to-back loop (``forward.cu:497-633``: 0.99
+alpha clamp, 1/255 alpha skip, sticky T < 1e-4 early stop) written as an
+exclusive cumulative product along the depth-sorted axis.  These functions
+are the CPU path of the renderer and the plain version the CUDA composite
+kernel (:mod:`soar_tpu_torch.render.block_composite`) is held against.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+
+def splat_alpha(
+    d: torch.Tensor,  # [..., 2] pixel offset (mean_xy - pixf)
+    conic: torch.Tensor,  # [..., 3] (a, b, c)
+    opacity: torch.Tensor,  # [...]
+    valid: torch.Tensor,  # [...] bool
+    alpha_clamp: float = 0.99,
+    alpha_min: float = 1.0 / 255.0,
+) -> torch.Tensor:
+    """Gaussian falloff alpha with the skip rules applied as a hard zero:
+    power>0 and alpha<1/255 contribute nothing and do not advance T."""
+    dx, dy = d[..., 0], d[..., 1]
+    power = (
+        -0.5 * (conic[..., 0] * dx * dx + conic[..., 2] * dy * dy)
+        - conic[..., 1] * dx * dy
+    )
+    alpha = torch.clamp_max(opacity * torch.exp(torch.clamp_max(power, 0.0)), alpha_clamp)
+    keep = (power <= 0.0) & (alpha >= alpha_min) & valid
+    # where(), not alpha*keep: a NaN alpha must mask to 0, not NaN*0 = NaN.
+    return torch.where(keep, alpha, 0.0)
+
+
+def composite_weights(
+    alpha: torch.Tensor, t_min: float = 1e-4
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Blend weights w_i = alpha_i * prod_{j<i}(1 - alpha_j) along the last
+    axis with the early-stop rule: the first splat that would push T below
+    ``t_min`` — and everything behind it — is excluded.
+
+    Returns (weights [..., K], final transmittance [...])."""
+    one_minus = 1.0 - alpha
+    ones = torch.ones_like(alpha[..., :1])
+    t_excl = torch.cat([ones, torch.cumprod(one_minus[..., :-1], dim=-1)], dim=-1)
+    violates = t_excl * one_minus < t_min
+    excluded = torch.cumsum(violates.to(torch.int32), dim=-1) >= 1
+    alpha_eff = torch.where(excluded, 0.0, alpha)
+
+    one_minus_eff = 1.0 - alpha_eff
+    t_excl_eff = torch.cat(
+        [ones, torch.cumprod(one_minus_eff[..., :-1], dim=-1)], dim=-1
+    )
+    weights = alpha_eff * t_excl_eff
+    t_final = torch.prod(one_minus_eff, dim=-1)
+    return weights, t_final
+
+
+def finalize_accum(
+    accum_color: torch.Tensor,  # [..., C] pre-background weighted sum
+    accum_normal: torch.Tensor,  # [..., 3]
+    accum_depth: torch.Tensor,  # [...] plane-corrected weighted depth sum
+    t_final: torch.Tensor,  # [...]
+    bg_color: torch.Tensor,  # [C]
+    normalize_depth: bool,
+):
+    """Output assembly from pre-accumulated channel sums (the composite
+    kernel's outputs): T clamped to <= 1-1e-6, color over bg, depth
+    normalized by accumulated alpha (or the reference's ``D + T*10``)."""
+    T = torch.clamp_max(t_final, 1.0 - 1e-6)
+    color = accum_color + T[..., None] * bg_color
+    depth = accum_depth / (1.0 - T) if normalize_depth else accum_depth + T * 10.0
+    return color, accum_normal, depth, 1.0 - T, T
+
+
+def finalize(
+    weights: torch.Tensor,  # [..., K]
+    t_final: torch.Tensor,  # [...]
+    colors: torch.Tensor,  # [..., K, C]
+    normals: torch.Tensor,  # [..., K, 3]
+    depths: torch.Tensor,  # [..., K] plane-corrected per-pixel depths
+    bg_color: torch.Tensor,  # [C]
+    surface: bool,
+    normalize_depth: bool,
+):
+    """:func:`finalize_accum` from per-slot weights (``forward.cu:616-633``),
+    accumulating the K-contractions in f32."""
+    T = torch.clamp_max(t_final, 1.0 - 1e-6)
+    color = torch.einsum("...k,...kc->...c", weights, colors) + T[..., None] * bg_color
+    if surface:
+        normal = torch.einsum("...k,...kc->...c", weights, normals)
+    else:
+        normal = torch.zeros(color.shape[:-1] + (3,), dtype=color.dtype, device=color.device)
+    D = torch.einsum("...k,...k->...", weights, depths)
+    depth = D / (1.0 - T) if normalize_depth else D + T * 10.0
+    return color, normal, depth, 1.0 - T, T
+
+
+def composite_block_plain(
+    xy: torch.Tensor,  # [NT, K, 2]
+    conic: torch.Tensor,  # [NT, K, 3]
+    opac: torch.Tensor,  # [NT, K]
+    valid: torch.Tensor,  # [NT, K] bool
+    attrs: torch.Tensor,  # [NT, K, C]
+    e: torch.Tensor,  # [NT, K, 2] depth-correction coeffs
+    pixf: torch.Tensor,  # [NT, P, 2]
+    alpha_clamp: float = 0.99,
+    alpha_min: float = 1.0 / 255.0,
+    t_min: float = 1e-4,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The function ``soar_tpu.render.block_composite.composite_block``
+    computes, through the dense [NT, P, K] cumprod chain.
+
+    Returns ``(accum [NT, P, C], corr [NT, P], T [NT, P])``; the caller
+    SUBTRACTS ``corr = sum_k w_k * (dx*e0 + dy*e1)`` from the depth channel.
+    """
+    d = xy[:, None, :, :] - pixf[:, :, None, :]  # [NT, P, K, 2]
+    alpha = splat_alpha(
+        d, conic[:, None], opac[:, None], valid[:, None], alpha_clamp, alpha_min
+    )
+    weights, t_final = composite_weights(alpha, t_min)
+    accum = torch.einsum("npk,nkc->npc", weights, attrs)
+    corr = torch.sum(
+        weights * (d[..., 0] * e[:, None, :, 0] + d[..., 1] * e[:, None, :, 1]),
+        dim=-1,
+    )
+    return accum, corr, t_final

@@ -1,0 +1,114 @@
+"""Shared helpers for the ``tests/test_torch_port_*.py`` parity tests:
+numpy <-> jnp / torch conversion and flattening of ``soar_tpu`` pytrees
+into the nested numpy dicts ``soar_tpu_torch.io.from_jax`` takes."""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+def _warm_up_vectorized_math():
+    """Some CPU builds of torch (seen with 2.13.0+cpu) return the first call
+    of a vectorized transcendental op in a process (exp, log, tanh, ...) with
+    up to ~1e-4 relative error when that call runs on several threads; every
+    later call is float32-exact.  One call of each such op the port uses, at
+    a size that runs in parallel, keeps that out of the comparisons."""
+    x = torch.linspace(0.01, 4.0, 1 << 17)
+    for f in (torch.exp, torch.log, torch.log1p, torch.sqrt, torch.rsqrt, torch.sin,
+              torch.cos, torch.tan, torch.tanh, torch.sigmoid):
+        f(x)
+    torch.atan2(x, x.flip(0))
+
+
+_warm_up_vectorized_math()
+
+
+def t(a, dtype=None):
+    """numpy / jnp -> CPU torch tensor."""
+    out = torch.from_numpy(np.array(a))
+    return out if dtype is None else out.to(dtype)
+
+
+def n(x):
+    """torch / jnp -> numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def body_to_numpy(body) -> dict:
+    return {
+        "v_template": n(body.v_template),
+        "shapedirs": n(body.shapedirs),
+        "posedirs": n(body.posedirs),
+        "J_regressor": n(body.J_regressor),
+        "lbs_weights": n(body.lbs_weights),
+        "parents": tuple(body.parents),
+        "faces": n(body.faces),
+        "num_betas": body.num_betas,
+        "pose_mean": None if body.pose_mean is None else n(body.pose_mean),
+    }
+
+
+def avatar_to_numpy(params, model):
+    """(AvatarParams, AvatarModel) of soar_tpu -> (params dict, model dict)."""
+    f = params.field
+    field = {
+        k: ([{"w": n(l["w"]), "b": n(l["b"])} for l in v] if k.startswith("mlp_") else n(v))
+        for k, v in f.items()
+    }
+    p = {k: n(getattr(params, k)) for k in
+         ("xyz", "rotation", "scaling", "opacity", "colors", "occ", "latent_pose")}
+    p["field"] = field
+    m = {
+        "body": body_to_numpy(model.body),
+        "skin": {k: n(v) for k, v in model.skin._asdict().items()},
+        "smpl_params": {k: n(v) for k, v in model.smpl_params.items()},
+        "aabb": n(model.aabb),
+        "original_pos": n(model.original_pos),
+        "num_frames": model.num_frames,
+        "field_cfg": dataclasses.asdict(model.field_cfg),
+    }
+    return p, m
+
+
+def assert_close(got, want, atol, rtol=0.0, msg=""):
+    np.testing.assert_allclose(n(got), n(want), atol=atol, rtol=rtol, err_msg=msg)
+
+
+def assert_close_share(got, want, atol, max_share, msg=""):
+    """All finite where the reference is, and at most ``max_share`` of the
+    elements beyond ``atol`` (threshold flips at the T cutoff)."""
+    got, want = n(got), n(want)
+    assert got.shape == want.shape, msg
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want), err_msg=msg)
+    bad = np.abs(got - want) > atol
+    share = bad.mean() if bad.size else 0.0
+    assert share <= max_share, f"{msg}: {share:.4%} of elements beyond {atol}"
+
+
+def make_scene(NT=6, K=24, tile=16, C=7, seed=0, saturate=False):
+    """The fixture of tests/test_block_composite.py, as numpy arrays."""
+    rng = np.random.RandomState(seed)
+    origins = (rng.randint(0, 4, (NT, 2)) * tile).astype(np.float32)
+    xy = origins[:, None, :] + rng.uniform(0, tile, (NT, K, 2))
+    conic = np.zeros((NT, K, 3), np.float32)
+    conic[..., 0] = rng.uniform(0.02, 0.3, (NT, K))
+    conic[..., 2] = rng.uniform(0.02, 0.3, (NT, K))
+    conic[..., 1] = rng.uniform(-0.02, 0.02, (NT, K))
+    if saturate:
+        opac = rng.uniform(0.9, 1.0, (NT, K)).astype(np.float32)
+    else:
+        opac = rng.uniform(0.2, 0.9, (NT, K)).astype(np.float32)
+    attrs = rng.uniform(-1, 1, (NT, K, C)).astype(np.float32)
+    e = rng.uniform(-0.3, 0.3, (NT, K, 2)).astype(np.float32)
+    valid = rng.rand(NT, K) > 0.15
+    lx = np.tile(np.arange(tile, dtype=np.float32), tile)
+    ly = np.repeat(np.arange(tile, dtype=np.float32), tile)
+    pixf = np.stack(
+        [origins[:, None, 0] + lx[None], origins[:, None, 1] + ly[None]], -1
+    ).astype(np.float32)
+    return (xy.astype(np.float32), conic, opac, valid, attrs, e, pixf)
