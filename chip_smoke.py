@@ -6,14 +6,28 @@
 2. Builds every CUDA kernel of the port from ``soar_tpu_torch/csrc`` with
    nvcc (sm_90a), one process per source, all started together.
 3. Holds each kernel against its plain PyTorch version on the card at the
-   shapes the turntable gives it, and times both (CUDA events).
+   shapes its paths give it, and times both (CUDA events): the forward
+   composite at the turntable's K=96 (C=7 main pass, C=3 occ pass), the
+   backward composite at the training step's K=64 (NT=1024 and 256).
 4. Drives the port's turntable (``soar_tpu_torch.cli.render_rot.
    run_turntable``) at full width — the 125,664-surfel procedural scene,
    16-level 2^18 hash field, 512x512 renders — with every launch counter
    set to 0 just before and read just after, and checks the outputs.
    Then times one view, and holds it against the same view with the plain
    composite, at bench.py's camera and at one that frames the whole body.
-5. Prints a ``{"kernels": [...]}`` line, then as the last line
+5. Drives the port's training step (``soar_tpu_torch.train.trainer.
+   make_train_step``) at the full width of bench_trainstep.py's guidance-
+   free production step: the same scene and its 8 random GT frames, 4 gen
+   views at 256x256, the GT pass and the normal front/back pass at
+   512x512, K=64.  2 warm-up steps, then 5 timed steps with the counters
+   set to 0 just before and read just after: 13 forward and 8 backward
+   kernel launches a step.  Checks the losses, the parameter updates and
+   that no op of a step computes on the CPU, profiles one step, and holds
+   the kernel step's losses and gradients against the plain composite's.
+6. Runs the training CLI (``--synthetic --stage both --steps 3``) and the
+   turntable CLI on its checkpoint.
+7. Prints the wall seconds of each phase (``[time]``), a
+   ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -36,13 +50,55 @@ import torch
 H100_F32_FLOPS = 67e12  # non-tensor-core f32, H100 SXM data sheet (700 W)
 H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
 SLICE_NT, SLICE_P, SLICE_K = 1024, 256, 96  # 512x512 render, 16x16 tiles, K=96
-NUM_VIEWS = 4
+TRAIN_K = 64  # the training step's max_per_tile (cli.train's default)
+NUM_VIEWS = 2
 KERNEL_TOL = 1e-4  # |kernel - plain| per element (accum values are O(1))
 KERNEL_FLIP_SHARE = 0.01  # pixels allowed a T-cutoff flip (see composite.py)
+# The backward's gfeat entries, relative to their column's largest
+# magnitude: at most 0.1% beyond KERNEL_TOL (a pixel whose stop slot flips
+# moves one slot's sum over 256 pixels; none flipped at these seeds), and
+# none beyond 1e-2, so an off-by-one slot cannot hide in the allowance.
+BWD_FLIP_SHARE = 1e-3
+BWD_CAP = 1e-2
 # Per pixel-slot operation counts of the composite, for the bound: an
 # evaluated slot costs offsets, power, exp, clamp, the skip tests and the
 # T update (19); a blended slot adds w = a*T, C channel FMAs and corr (2C+6).
 OPS_PER_EVAL = 19
+# The backward walks every evaluated slot twice (2 * 19); a blended slot
+# costs gw and the running sum in pass 1 (2C+7), and in pass 2 gw again,
+# the prefix, S_k, dL/dalpha, the clamp and exp chain and the 8 + C
+# per-slot gradients (3C+41); every slot some pixel of the tile blended
+# adds its 8 + C sums over the tile's P pixels.
+BWD_OPS_PER_BLEND_C = 5
+BWD_OPS_PER_BLEND = 48
+# Kernel-vs-plain gradients of one full-width step, as the relative L2
+# difference per parameter leaf.  Both steps see the same state and draws;
+# what differs: a pixel whose T crosses the 1e-4 cutoff between the
+# kernel's sequential product and the plain cumprod takes another stop
+# slot (the kernel tests allow 1% of pixels), the packed gather's backward
+# is an atomic scatter-add whose order changes from run to run, and the
+# hash tables' cotangents are scatter-added in bf16 (the bf16 gather copy
+# the JAX package also has).  So 1e-2 for the hash tables, 2e-3 elsewhere.
+STEP_GRAD_TOL = 2e-3
+STEP_GRAD_TOL_BF16 = 1e-2
+STEP_LOSS_RTOL = 1e-4
+
+
+T_START = time.perf_counter()  # after the imports of torch and numpy
+WALL_S = {}  # wall seconds per phase of this script, for the [time] line
+
+
+class timed:
+    """Adds the wall seconds of a ``with`` block to ``WALL_S[name]``."""
+
+    def __init__(self, name):
+        self.name = name
+
+    def __enter__(self):
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc):
+        WALL_S[self.name] = WALL_S.get(self.name, 0.0) + time.perf_counter() - self.t0
 
 
 def check(cond, msg):
@@ -93,14 +149,15 @@ def card_info():
 # ------------------------------------------------------------------ kernels
 
 
-def composite_scene(C, seed):
-    """The composite's inputs at the slice's shapes: a 32x32 grid of 16x16
-    tiles, K=96 slots, ~15% invalid slots plus short tile runs, half the
+def composite_scene(C, seed, NT=SLICE_NT, K=SLICE_K):
+    """The composite's inputs at a path's shapes: a square grid of NT 16x16
+    tiles, K slots, ~15% invalid slots plus short tile runs, half the
     tiles saturating (opacity 0.9-1.0, so the T < 1e-4 stop fires)."""
     rng = np.random.RandomState(seed)
-    NT, P, K, tile = SLICE_NT, SLICE_P, SLICE_K, 16
+    P, tile = SLICE_P, 16
+    side = int(round(NT ** 0.5))
     t_ar = np.arange(NT)
-    origins = np.stack([(t_ar % 32) * tile, (t_ar // 32) * tile], -1).astype(np.float32)
+    origins = np.stack([(t_ar % side) * tile, (t_ar // side) * tile], -1).astype(np.float32)
     xy = origins[:, None, :] + rng.uniform(-4, tile + 4, (NT, K, 2))
     conic = np.zeros((NT, K, 3), np.float32)
     conic[..., 0] = rng.uniform(0.02, 0.3, (NT, K))
@@ -120,34 +177,60 @@ def composite_scene(C, seed):
                  for a in arrs)
 
 
-def composite_bound_ms(args, C):
-    """Least time for this call: max(bytes / HBM rate, ops / f32 rate) with
-    the pixel-slot pairs this data makes the kernel walk."""
+def walk_counts(args):
+    """The pixel-slot pairs this data makes the composite walk: evaluated
+    (up to and including a pixel's early-stop slot, valid slots only),
+    blended (weight > 0), and the (tile, slot) pairs some pixel blended."""
     from soar_tpu_torch.render.composite import composite_weights, splat_alpha
 
     xy, conic, opac, valid, attrs, e, pixf = args
-    NT, K = valid.shape
-    P = pixf.shape[1]
+    K = valid.shape[1]
     d = xy[:, None] - pixf[:, :, None]
     alpha = splat_alpha(d, conic[:, None], opac[:, None], valid[:, None])
     w, _ = composite_weights(alpha)
-    # A pixel walks its slots up to and including its early-stop slot.
     one_minus = 1.0 - alpha
     t_excl = torch.cat([torch.ones_like(alpha[..., :1]),
                         torch.cumprod(one_minus[..., :-1], -1)], -1)
     viol = (t_excl * one_minus) < 1e-4
     stop = torch.where(viol.any(-1), viol.float().argmax(-1), torch.full_like(viol[..., 0], K - 1, dtype=torch.long))
     walked = torch.arange(K, device=xy.device)[None, None] <= stop[..., None]
-    evals = int((walked & valid[:, None]).sum())
-    blends = int((w > 0).sum())
-    ops = evals * OPS_PER_EVAL + blends * (2 * C + 6)
-    nbytes = 4 * (NT * K * (9 + C) + NT * P * 2 + NT * P * (C + 2))
+    return (int((walked & valid[:, None]).sum()), int((w > 0).sum()),
+            int((w > 0).any(1).sum()))
+
+
+def _bound(ops, nbytes):
     t_ops, t_bytes = ops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
-    return {
-        "bound_ms": 1e3 * max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "ops": ops, "bytes": nbytes, "pairs_evaluated": evals, "pairs_blended": blends,
-    }
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
+def composite_bound_ms(args, C):
+    """Least time for this call: max(bytes / HBM rate, ops / f32 rate) with
+    the pixel-slot pairs this data makes the kernel walk."""
+    NT, K = args[3].shape
+    P = args[6].shape[1]
+    evals, blends, _ = walk_counts(args)
+    out = _bound(evals * OPS_PER_EVAL + blends * (2 * C + 6),
+                 4 * (NT * K * (9 + C) + NT * P * 2 + NT * P * (C + 2)))
+    out.update(pairs_evaluated=evals, pairs_blended=blends)
+    return out
+
+
+def composite_bwd_bound_ms(args, C):
+    """The backward's least time: it reads feat, pixf and the three
+    cotangents once and writes gfeat once; its operations are two walks
+    over the evaluated pairs, the gradient chain over the blended pairs and
+    the per-slot pixel sums (the constants above)."""
+    NT, K = args[3].shape
+    P = args[6].shape[1]
+    F = 9 + C
+    evals, blends, slots = walk_counts(args)
+    ops = (2 * evals * OPS_PER_EVAL + blends * (BWD_OPS_PER_BLEND_C * C + BWD_OPS_PER_BLEND)
+           + slots * (F - 1) * P)
+    out = _bound(ops, 4 * (2 * NT * K * F + NT * P * 2 + NT * P * (C + 2)))
+    out.update(pairs_evaluated=evals, pairs_blended=blends, slots_blended=slots)
+    return out
 
 
 def check_composite_kernel(C, seed):
@@ -178,6 +261,45 @@ def check_composite_kernel(C, seed):
           f"{errs['corr']:.3g} T {errs['T']:.3g}; pixels beyond {KERNEL_TOL}: {share:.4%}; "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
           f"({out['bound_by']}); library call: none (no single PyTorch op computes it)")
+    return out
+
+
+def check_composite_bwd_kernel(NT, C, seed):
+    """composite_bwd against composite_block_bwd_plain at the training
+    step's K: per gfeat column, the largest |kernel - plain| relative to
+    the column's largest magnitude, held to KERNEL_TOL with BWD_FLIP_SHARE
+    of the entries allowed beyond it, and every entry to BWD_CAP."""
+    from soar_tpu_torch.render.block_composite import composite_block_bwd
+    from soar_tpu_torch.render.composite import composite_block_bwd_plain
+
+    args = composite_scene(C, seed, NT=NT, K=TRAIN_K)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    P = args[6].shape[1]
+    cots = (torch.randn((NT, C, P), generator=g, device="cuda"),
+            torch.randn((NT, P), generator=g, device="cuda"),
+            torch.randn((NT, P), generator=g, device="cuda"))
+    got = composite_block_bwd(*args, *cots)
+    torch.cuda.synchronize()
+    want = composite_block_bwd_plain(*args, *cots)
+    check(bool(torch.isfinite(got).all()), f"bwd NT={NT} C={C}: gfeat not finite")
+    check(bool((got[..., 6] == 0).all()), "bwd: the valid column has a gradient")
+    scale = want.abs().amax((0, 1))
+    diff = (got - want).abs()
+    rel = (diff.amax((0, 1)) / scale.clamp_min(1e-30)).tolist()
+    share = float((diff > KERNEL_TOL * scale).float().mean())
+    check(share <= BWD_FLIP_SHARE,
+          f"bwd NT={NT} C={C}: {share:.4%} of gfeat entries beyond {KERNEL_TOL} x column max")
+    check(max(rel) <= BWD_CAP, f"bwd NT={NT} C={C}: a gfeat entry beyond {BWD_CAP} x column max")
+    ms = cuda_ms(lambda: composite_block_bwd(*args, *cots), 100)
+    plain_ms = cuda_ms(lambda: composite_block_bwd_plain(*args, *cots), 5)
+    out = {"NT": NT, "C": C, "K": TRAIN_K, "max_abs_err": float(diff.max()),
+           "col_rel_err": rel, "share_beyond_tol": share, "ms": ms, "plain_ms": plain_ms}
+    out.update(composite_bwd_bound_ms(args, C))
+    print(f"[composite_bwd NT={NT} C={C} K={TRAIN_K}] max|kernel-plain|/column max per gfeat "
+          f"column {[f'{x:.2e}' for x in rel]} (valid column 0); entries beyond {KERNEL_TOL}: "
+          f"{share:.4%}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}); library call: none (no single "
+          f"PyTorch op computes the composite's backward)")
     return out
 
 
@@ -224,9 +346,12 @@ def slice_scene(device):
 
 
 def profile_view(render):
-    """Device time by kernel over one view (torch.profiler / CUPTI): only
-    device-side events are summed, so an aten op and the kernel it launched
-    are not counted twice."""
+    """Device time by kernel over one call of ``render`` (a view or a
+    training step; torch.profiler / CUPTI): only device-side events are
+    summed, so an aten op and the kernel it launched are not counted
+    twice.  A ``record_function`` range (``Optimizer.step#Adam.step``) is
+    mirrored on the device timeline over the kernels it launched; it is
+    left out too."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -236,9 +361,12 @@ def profile_view(render):
         render()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.key_averages()
+    host_keys = {ev.key for ev in events if ev.device_type == DeviceType.CPU}
     rows = sorted(
-        ((ev.self_device_time_total / 1e3, ev.count, ev.key) for ev in prof.key_averages()
-         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0),
+        ((ev.self_device_time_total / 1e3, ev.count, ev.key) for ev in events
+         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
+         and ev.key not in host_keys),
         reverse=True,
     )
     return {
@@ -246,6 +374,7 @@ def profile_view(render):
         "device_busy_ms": sum(r[0] for r in rows),
         "device_kernels": sum(r[1] for r in rows),
         "composite_fwd_ms": sum(r[0] for r in rows if "composite_fwd" in r[2]),
+        "composite_bwd_ms": sum(r[0] for r in rows if "composite_bwd" in r[2]),
         "top": [{"ms": r[0], "calls": r[1], "name": r[2][:90]} for r in rows[:15]],
     }
 
@@ -305,19 +434,12 @@ def layer_ms(params, model, cam, bg, ov):
     }
 
 
-def run_slice(device):
+def run_slice(ds, params, model, device):
     from soar_tpu_torch.cli.render_rot import gt_camera, run_turntable
     from soar_tpu_torch.core.transforms import rotmat_to_rotvec
     from soar_tpu_torch.render import block_composite
 
-    t0 = time.perf_counter()
-    ds, params, model = slice_scene(device)
-    torch.cuda.synchronize()
-    setup_s = time.perf_counter() - t0
     N = params.xyz.shape[0]
-    check(N == 125_664, f"surfel count {N} != 125664")
-    print(f"[slice] scene: {N} surfels, field 16 levels x 2^18 rows, 512x512, "
-          f"set-up {setup_s:.2f} s")
 
     # ---- the main path, counted: launch counters 0 just before, read after
     with tempfile.TemporaryDirectory() as out_dir:
@@ -359,7 +481,7 @@ def run_slice(device):
     reports = {label: view_report(label, params, model, cam, ov)
                for label, cam in views.items()}
     return {
-        "surfels": N, "setup_s": setup_s, "turntable_s": turntable_s, "launches": launches,
+        "surfels": N, "turntable_s": turntable_s, "launches": launches,
         "overflow": overflow, "mask_pixels": coverage, "views": reports,
     }
 
@@ -447,6 +569,249 @@ def view_report(label, params, model, cam, ov):
     }
 
 
+# ----------------------------------------------------------- the training
+
+
+def train_dataset(ds_turntable):
+    """bench_trainstep.build_scene's dataset: its RandomState(0) draws after
+    the body pose (8 frames of 512x512 random RGB, masks, front and back
+    normal maps, normal masks and crops), focal 600, identity extrinsics."""
+    from soar_tpu_torch.data.dataset import AvatarDataset
+
+    sp = ds_turntable.smpl_params
+    F, H = sp["body_pose"].shape[0], 512
+    rng = np.random.RandomState(0)
+    rng.randn(*sp["body_pose"].shape)  # the body pose, drawn first
+    f32 = np.float32
+    images = rng.rand(F, H, H, 3).astype(f32)
+    masks = (rng.rand(F, H, H) > 0.5).astype(f32)
+    normal_F = rng.rand(F, 512, 512, 3).astype(f32)
+    normal_B = rng.rand(F, 512, 512, 3).astype(f32)
+    normal_mask = (rng.rand(F, 512, 512) > 0.5).astype(f32)
+    images_crop = rng.rand(F, 512, 512, 3).astype(f32)
+    masks_crop = (rng.rand(F, 512, 512) > 0.5).astype(f32)
+    K = np.array([[600.0, 0, H / 2], [0, 600.0, H / 2], [0, 0, 1]], f32)
+    return AvatarDataset(
+        images=images, masks=masks, normal_F=normal_F, normal_B=normal_B,
+        normal_mask=normal_mask, images_crop=images_crop, masks_crop=masks_crop,
+        smpl_params=sp, w2c=np.eye(4, dtype=f32), Ks=np.tile(K[None], (F, 1, 1)),
+        normal_Ks=np.tile(K[None], (F, 1, 1)), train_idx=list(range(F)), val_idx=[],
+        test_idx=[],
+    )
+
+
+TRAIN_STEPS, WARMUP_STEPS = 5, 2
+FWD_PER_STEP = 13  # 4 gen views x (main + occ), GT main + occ, normal front + back + occ
+BWD_PER_STEP = 8  # 4 gen mains, GT main + occ, normal front + back (see PERF.md)
+CHANGING_GROUPS = {"xyz", "rotation", "occ", "field", "field_scales"}
+
+
+def run_training(ds, params, model, device):
+    """The full-width guidance-free training step (bench_trainstep.py's
+    production step, reconstruction only): stage 0, 4 gen views at 256x256,
+    GT and normal passes at 512x512, K=64, the attribute field."""
+    import dataclasses
+
+    from soar_tpu_torch.render import block_composite
+    from soar_tpu_torch.render.types import RasterConfig
+    from soar_tpu_torch.train.config import StageConfig, TrainConfig
+    from soar_tpu_torch.train.trainer import (
+        init_train_state,
+        make_gt_batch,
+        make_train_step,
+        sample_step_draws,
+    )
+
+    cfg = TrainConfig(n_views=4, head_prob=0.0)
+    stage = StageConfig()
+    raster = RasterConfig(max_per_tile=TRAIN_K, dup_side=5, composite_dtype="bf16")
+    sizes = dict(gen_size=(256, 256), gt_size=(512, 512), normal_size=(512, 512))
+    state, opt = init_train_state(params, cfg, stage=stage)
+    step = make_train_step(model, cfg, stage, opt, raster=raster, use_explicit=False,
+                           has_normals=True, **sizes)
+    with timed("train: GT batches"):
+        batches = [make_gt_batch(ds, model, f, device) for f in ds.train_idx]
+    gen =torch.Generator(device=device).manual_seed(0)
+    frames = np.random.RandomState(1)
+
+    def one_step():
+        draws = sample_step_draws(gen, cfg)
+        return step(state, batches[frames.randint(len(batches))], draws)
+
+    with timed("train: 2 warm-up steps"):
+        for _ in range(WARMUP_STEPS):
+            one_step()
+        torch.cuda.synchronize()
+    groups = {name: [p.detach().clone() for p in ps] for name, ps in opt.groups.items()}
+
+    # ---- the main path, counted: launch counters 0 just before, read after
+    block_composite.composite_block.launches = 0
+    block_composite.composite_block.bwd_launches = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
+    ev[0].record()
+    metrics = []
+    with timed("train: 5 timed steps"):
+        for i in range(TRAIN_STEPS):
+            metrics.append(one_step()[1])
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+    fwd = block_composite.composite_block.launches
+    bwd = block_composite.composite_block.bwd_launches
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TRAIN_STEPS)]
+    ms = sum(step_ms) / TRAIN_STEPS
+    check(fwd == FWD_PER_STEP * TRAIN_STEPS,
+          f"training: composite_fwd launched {fwd} times, want {FWD_PER_STEP * TRAIN_STEPS}")
+    check(bwd == BWD_PER_STEP * TRAIN_STEPS,
+          f"training: composite_bwd launched {bwd} times, want {BWD_PER_STEP * TRAIN_STEPS}")
+    rows = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for r in rows:
+        check(all(np.isfinite(v) for v in r.values()), f"training: a loss is not finite: {r}")
+    changed = {name for name, ps in opt.groups.items()
+               if any(not torch.equal(p, q) for p, q in zip(ps, groups[name]))}
+    check(changed == CHANGING_GROUPS,
+          f"training: groups changed {sorted(changed)}, want {sorted(CHANGING_GROUPS)}")
+    print(f"[train] {ds.num_frames} frames, 4 gen views 256x256, GT + normal F/B 512x512, "
+          f"K={TRAIN_K}: {ms:.3f} ms/step over {TRAIN_STEPS} steps ({[round(x, 3) for x in step_ms]} "
+          f"ms) after {WARMUP_STEPS} warm-up; launches fwd {fwd} ({fwd // TRAIN_STEPS}/step), "
+          f"bwd {bwd} ({bwd // TRAIN_STEPS}/step); groups updated {sorted(changed)} (colors, "
+          f"opacity, scaling, latent_pose and the offsets/opacities heads get no gradient in "
+          f"the field-driven step, as in the JAX package)")
+    print(f"[train] canaries per step: raster_dropped {[r['raster_dropped'] for r in rows]}, "
+          f"raster_capped {[r['raster_capped'] for r in rows]}")
+    print("[train] last step's losses " + json.dumps({k: round(v, 6) for k, v in rows[-1].items()}))
+
+    with timed("train: profiled step"):
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_view(one_step)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    busy = prof["device_busy_ms"]
+    check(busy > 0 and prof["composite_fwd_ms"] > 0 and prof["composite_bwd_ms"] > 0,
+          "training: the profiler saw no device time in a kernel")
+    prof["idle_share"] = 1.0 - busy / ms
+    with timed("train: host-op step"):
+        cpu_compute, cpu_moves, n_ops, n_syncs = host_ops(one_step)
+    check(not cpu_compute, f"training: an op of the step computed on the CPU: {cpu_compute}")
+    print(f"[train] profile of one step: device busy {busy:.3f} ms in {prof['device_kernels']} "
+          f"device ops (composite_fwd {prof['composite_fwd_ms']:.3f} ms = "
+          f"{prof['composite_fwd_ms'] / busy:.4f} of busy, composite_bwd "
+          f"{prof['composite_bwd_ms']:.3f} ms = {prof['composite_bwd_ms'] / busy:.4f}), idle "
+          f"share {prof['idle_share']:.4f} of {ms:.3f} ms; peak memory {peak_gib:.3f} GiB; "
+          f"{n_ops} aten ops, {n_syncs} host syncs, none computed on the CPU; ops with a CPU "
+          f"result (transfers) {cpu_moves}")
+    for row in prof["top"]:
+        print(f"    {row['ms']:9.4f} ms  x{row['calls']:<5d} {row['name']}")
+
+    # ---- where a step's wall time goes: the loss (every render), the
+    # backward and the optimizer, each ended by a sync, over 3 steps
+    phases = {"forward": [], "backward": [], "optimizer": []}
+    t_phases = time.perf_counter()
+    for _ in range(3):
+        draws = sample_step_draws(gen, cfg)
+        batch = batches[frames.randint(len(batches))]
+        opt.zero_grad()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _, _ = step.loss_fn(state.params, state.bg_params, batch, draws, state.step)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        loss.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        opt.step()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        state.step += 1
+        for name, a, b in (("forward", t0, t1), ("backward", t1, t2), ("optimizer", t2, t3)):
+            phases[name].append(1e3 * (b - a))
+    phase_ms = {k: float(np.median(v)) for k, v in phases.items()}
+    WALL_S["train: 3 synced phase steps"] = time.perf_counter() - t_phases
+    print("[train] phases, median ms of 3 synced steps: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in phase_ms.items()))
+
+    # ---- the same step with the plain composite: same state and draws
+    plain = make_train_step(model, cfg, stage, opt, use_explicit=False, has_normals=True,
+                            raster=dataclasses.replace(raster, composite="plain",
+                                                       composite_dtype="f32"), **sizes)
+    draws = sample_step_draws(gen, cfg)
+
+    def grads_of(fn):
+        """Losses, grads, wall ms and the (forward, backward) kernel
+        launches of one loss + backward."""
+        opt.zero_grad()
+        counts = (block_composite.composite_block.launches,
+                  block_composite.composite_block.bwd_launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, m, _ = fn.loss_fn(state.params, state.bg_params, batches[0], draws, state.step)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+        g = {k: p.grad.detach().clone() for k, p in state.params.named_parameters()
+             if p.grad is not None}
+        launched = (block_composite.composite_block.launches - counts[0],
+                    block_composite.composite_block.bwd_launches - counts[1])
+        return {k: float(v.detach()) for k, v in m.items()}, g, wall, launched
+
+    with timed("train: kernel vs plain step"):
+        mk, gk, wall_k, launched_k = grads_of(step)
+        mp, gp, wall_p, launched_p = grads_of(plain)
+    opt.zero_grad()
+    # The comparison is between two paths: the kernels' and the plain one.
+    check(launched_k == (FWD_PER_STEP, BWD_PER_STEP) and launched_p == (0, 0),
+          f"kernel vs plain: launches {launched_k} and {launched_p}")
+    check(set(gk) == set(gp), f"kernel vs plain: grads of {sorted(gk)} vs {sorted(gp)}")
+    loss_rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp}
+    grad_rel = {k: float((gk[k] - gp[k]).norm() / gp[k].norm().clamp_min(1e-30)) for k in gp}
+    print(f"[train] kernel vs plain step (same state and draws; loss + backward "
+          f"{wall_k:.1f} ms kernel, {wall_p:.1f} ms plain): loss terms rel diff "
+          + json.dumps({k: float(f"{v:.3g}") for k, v in loss_rel.items()}))
+    print("[train] gradient rel L2 diff per leaf " + json.dumps(
+        {k: float(f"{v:.3g}") for k, v in grad_rel.items()}))
+    for k, v in loss_rel.items():
+        if not k.startswith("raster_"):
+            check(v <= STEP_LOSS_RTOL, f"kernel vs plain: {k} differs by {v:.3g} relative")
+    for k, v in grad_rel.items():
+        tol = STEP_GRAD_TOL_BF16 if k.endswith("encoding") else STEP_GRAD_TOL
+        check(v <= tol, f"kernel vs plain: grad of {k} differs by {v:.3g} (tolerance {tol})")
+    return {
+        "ms_per_step": ms, "step_ms": step_ms, "launches_fwd": fwd, "launches_bwd": bwd,
+        "losses": rows, "groups_changed": sorted(changed), "peak_memory_gib": peak_gib,
+        "profile": prof, "phase_ms": phase_ms, "aten_ops_per_step": n_ops,
+        "host_syncs_per_step": n_syncs,
+        "cpu_transfers_per_step": cpu_moves, "kernel_vs_plain": {
+            "loss_rel": loss_rel, "grad_rel_l2": grad_rel, "wall_ms_kernel": wall_k,
+            "wall_ms_plain": wall_p},
+    }
+
+
+def run_cli(device):
+    """cli.train --synthetic --stage both --steps 3, then cli.render_rot on
+    its stage-1 checkpoint, in a temporary directory."""
+    from soar_tpu_torch.cli import render_rot, train
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        train.main(["--synthetic", "--stage", "both", "--steps", "3", "--out", d,
+                    "--log-every", "1", "--device", device])
+        train_s = time.perf_counter() - t0
+        rot = os.path.join(d, "rot")
+        render_rot.main(["--synthetic", "--ckpt", os.path.join(d, "stage1"), "--num-views", "2",
+                         "--out", rot, "--device", device])
+        for st in (0, 1):
+            check(os.path.exists(os.path.join(d, f"stage{st}", "avatar.pt")),
+                  f"cli: no stage{st} checkpoint")
+        rows = [json.loads(line) for line in open(os.path.join(d, "metrics.jsonl"))]
+        check(len(rows) == 6 and all(np.isfinite(r["loss"]) for r in rows),
+              f"cli: metrics rows {rows}")
+        pngs = sorted(f for f in os.listdir(rot) if f.endswith(".png"))
+        check(len(pngs) == 8, f"cli: render_rot wrote {pngs}")
+    total_s = time.perf_counter() - t0
+    print(f"[cli] train --synthetic --stage both --steps 3: {train_s:.2f} s; render_rot --ckpt "
+          f"stage1 --num-views 2: {total_s - train_s:.2f} s; checkpoints, 6 metrics rows and "
+          f"{len(pngs)} pngs written")
+    return {"train_s": train_s, "render_rot_s": total_s - train_s}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -460,40 +825,83 @@ def main():
           f"triton {info['triton']}, CUTLASS headers {info['cutlass_headers']}")
 
     t0 = time.perf_counter()
-    built = kernels.build()
-    print(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
-    for name in kernels.SOURCES:
-        kernels.load(name)
-        report = [ln.strip() for ln in kernels.ptxas_report(name).splitlines() if "registers" in ln or "spill" in ln]
-        print(f"[build] {name}: " + " | ".join(report[:4]))
+    with timed("build"):
+        built = kernels.build()
+        print(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+        for name in kernels.SOURCES:
+            kernels.load(name)
+            report = [ln.strip() for ln in kernels.ptxas_report(name).splitlines()
+                      if "registers" in ln or "spill" in ln]
+            print(f"[build] {name}: " + " | ".join(report[:4]))
 
-    comp = [check_composite_kernel(7, seed=0), check_composite_kernel(3, seed=1)]
-    sl = run_slice("cuda")
+    with timed("kernel checks"):
+        comp = [check_composite_kernel(7, seed=0), check_composite_kernel(3, seed=1)]
+        comp_bwd = [check_composite_bwd_kernel(1024, 7, seed=2),
+                    check_composite_bwd_kernel(1024, 3, seed=3),
+                    check_composite_bwd_kernel(256, 7, seed=4)]
 
-    main_c = comp[0]
-    entry = {
+    t0 = time.perf_counter()
+    with timed("scene"):
+        ds, params, model = slice_scene("cuda")
+        torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    N = params.xyz.shape[0]
+    check(N == 125_664, f"surfel count {N} != 125664")
+    print(f"[slice] scene: {N} surfels, field 16 levels x 2^18 rows, 512x512, "
+          f"set-up {setup_s:.2f} s")
+    with timed("turntable and views"):
+        sl = run_slice(ds, params, model, "cuda")
+    sl["setup_s"] = setup_s
+    with timed("train: dataset"):
+        ds_train = train_dataset(ds)
+    tr = run_training(ds_train, params, model, "cuda")
+    with timed("cli"):
+        cli = run_cli("cuda")
+
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    fwd = {
         "name": "composite_fwd",
         "route": "cuda",
         "source": "soar_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "soar_tpu/render/block_composite.py:205",
-        "launches": sl["launches"],
+        "launches": tr["launches_fwd"],
+        "launches_turntable": sl["launches"],
         "max_abs_err": max(c["max_abs_err"] for c in comp),
-        "ms": main_c["ms"],
-        "plain_ms": main_c["plain_ms"],
-        "bound_ms": main_c["bound_ms"],
-        "bound_by": main_c["bound_by"],
+        "ms": comp[0]["ms"],
+        "plain_ms": comp[0]["plain_ms"],
+        "bound_ms": comp[0]["bound_ms"],
+        "bound_by": comp[0]["bound_by"],
         "library_ms": None,
-        "occ_C3": {k: comp[1][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+        "occ_C3": {k: comp[1][k] for k in keys},
+    }
+    bwd = {
+        "name": "composite_bwd",
+        "route": "cuda",
+        "source": "soar_tpu_torch/csrc/composite_bwd.cu",
+        "replaces": "soar_tpu/render/block_composite.py:226",
+        "launches": tr["launches_bwd"],
+        "max_abs_err": max(c["max_abs_err"] for c in comp_bwd),
+        "ms": comp_bwd[0]["ms"],
+        "plain_ms": comp_bwd[0]["plain_ms"],
+        "bound_ms": comp_bwd[0]["bound_ms"],
+        "bound_by": comp_bwd[0]["bound_by"],
+        "library_ms": None,
+        "occ_C3": {k: comp_bwd[1][k] for k in keys},
+        "gen_NT256": {k: comp_bwd[2][k] for k in keys},
     }
     # The same numbers under shorter names.
-    entry.update(max_err=entry["max_abs_err"], kernel_ms=entry["ms"])
-    report = {"card": info, "kernels": comp, "slice": sl}
+    for entry in (fwd, bwd):
+        entry.update(max_err=entry["max_abs_err"], kernel_ms=entry["ms"])
+    WALL_S["total after imports"] = time.perf_counter() - T_START
+    print("[time] wall s per phase: " + ", ".join(f"{k} {v:.2f}" for k, v in WALL_S.items()))
+    report = {"card": info, "kernels": comp, "kernels_bwd": comp_bwd, "slice": sl,
+              "training": tr, "cli": cli, "wall_s": WALL_S}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
     print(info["nvidia_smi"])
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [fwd, bwd]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}))
 

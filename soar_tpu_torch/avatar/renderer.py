@@ -4,8 +4,8 @@
 Pose the canonical surfels and their frames with the kNN-blended skinning
 matrices, query the attribute field for colors/scales, rasterize a main
 pass plus a front-face-culled occlusion pass, and post-process normals and
-curvature.  ``both_faces`` (the shared front/back pass) arrives with the
-training slice.
+curvature.  ``both_faces`` renders the front and back surfaces (plus the
+shared occ pass) from one preprocess and sort.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from ..core.camera import Camera
 from ..core.transforms import quat_to_rotmat, rotmat_to_quat
 from ..field.attribute_field import attribute_field_apply
 from ..render.postprocess import depth2normal, normal2curv
-from ..render.tiled import rasterize, rasterize_with_occ
+from ..render.tiled import rasterize, rasterize_front_back, rasterize_with_occ
 from ..render.types import GaussianInputs, RasterConfig
 from . import state as S
 from .state import AvatarModel, AvatarParams
@@ -39,6 +39,8 @@ class RenderSettings:
     # lite: skip the occlusion pass and the curvature / depth->normal post
     # ops; render/normal/depth/mask are identical to the full render.
     lite: bool = False
+    # both_faces: front and back surface passes from one shared preprocess
+    # and sort; render_view then returns a (front_dict, back_dict) tuple.
     both_faces: bool = False
 
 
@@ -119,11 +121,6 @@ def render_view(
     attrs: Optional[Dict[str, torch.Tensor]] = None,
     smpl_override: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Dict[str, torch.Tensor]:
-    if settings.both_faces:
-        raise NotImplementedError(
-            "both_faces (shared front/back pass) arrives with the training "
-            "slice of the port"
-        )
     g_main, occ_colors = posed_gaussians(
         params, model, frame_idx, settings, attrs, smpl_override
     )
@@ -131,7 +128,9 @@ def render_view(
         settings.raster,
         render_front=False,
         sort_descending=False,
-        compose_reverse=not settings.render_front,
+        # Back-surface pass: composite farthest-first without re-sorting,
+        # sharing the ascending sort with the occlusion pass.
+        compose_reverse=not (settings.render_front or settings.both_faces),
     )
     flip = torch.tensor([1.0, -1.0, -1.0], device=g_main.means3d.device)
 
@@ -164,6 +163,13 @@ def render_view(
             "visible": out.visible,
         }
 
+    if settings.both_faces:
+        # The occ image is the same for both faces (same camera, colors and
+        # ascending order): computed once and shared.
+        front, back, occ_out = rasterize_front_back(
+            g_main, occ_colors, camera, image_size, bg_color, main_cfg
+        )
+        return post(front, occ_out), post(back, occ_out)
     if settings.lite:
         return post(rasterize(g_main, camera, image_size, bg_color, main_cfg), None)
     out, occ_out = rasterize_with_occ(

@@ -8,8 +8,8 @@
 
 Initialization follows the JAX package: canonical 30°-leg A-pose,
 subdivided template, normal-aligned quats, 3-NN scale init, 0.5-gray
-colors, occ=1e-2, opacity 0.1.  Field distillation (``distill_steps``)
-arrives with the training slice.
+colors, occ=1e-2, opacity 0.1, then (``distill_steps`` > 0) the field is
+distilled towards those explicit attributes.
 """
 
 from __future__ import annotations
@@ -26,7 +26,7 @@ from ..body.model import BodyModel, smplx_forward
 from ..body.skinning import SkinningData, make_skinning_data, mean_knn_sq_dist
 from ..body.template import init_qso_on_mesh, subdivide_n
 from ..core.transforms import quat_to_rotmat
-from ..field.attribute_field import AttributeField, AttributeFieldConfig
+from ..field.attribute_field import AttributeField, AttributeFieldConfig, reset_field
 
 
 class AvatarParams(nn.Module):
@@ -168,12 +168,11 @@ def init_avatar(
 ) -> Tuple[AvatarParams, AvatarModel]:
     """Surfels on the ``num_subdiv``-times subdivided canonical template.
     ``body`` must already live on ``device``; the field's random tables come
-    from a ``torch.Generator`` seeded with ``seed``."""
-    if distill_steps:
-        raise NotImplementedError(
-            "field distillation (distill_steps > 0) arrives with the "
-            "training slice of the port"
-        )
+    from a ``torch.Generator`` seeded with ``seed``.  ``distill_steps`` > 0
+    distils the explicit init into the field (:func:`reset_field`) on the
+    points and their normal-offset copies, minibatched above 100k points
+    with draws from a generator seeded with 0, as the JAX package's
+    ``reset_field`` draws from ``PRNGKey(0)``."""
     dev = resolve_device(device)
     sp = {k: _as_f32(v, dev) for k, v in smpl_params.items()}
 
@@ -221,6 +220,18 @@ def init_avatar(
         num_frames=num_frames,
         field_cfg=field_cfg,
     )
+    if distill_steps > 0:
+        # Points plus normal-offset copies (``surfel_base.py:264-276``).
+        with torch.no_grad():
+            pts2 = torch.cat([points, points + 0.001 * get_normal(params)])
+            gray2 = torch.full((2 * N, 3), 0.5, device=dev)
+            scales2 = torch.cat([torch.exp(scaling)] * 2)
+            quats2 = torch.cat([get_rotation(params)] * 2)
+        reset_field(
+            field, pts2, gray2, scales2, quats2, steps=distill_steps,
+            batch_size=65536 if pts2.shape[0] > 100_000 else None,
+            generator=torch.Generator(device=dev).manual_seed(0),
+        )
     return params, model
 
 

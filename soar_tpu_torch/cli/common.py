@@ -9,7 +9,8 @@ from __future__ import annotations
 
 def synthetic_setup(distill_steps: int = 0, seed: int = 0, device="cuda"):
     """Returns (ds, params, model) for the procedural demo sequence with the
-    canonical synthetic avatar on ``device``."""
+    canonical synthetic avatar on ``device``; ``distill_steps`` > 0 distils
+    its field (``cli.train --synthetic`` uses 100, as the JAX package's)."""
     from ..avatar.state import init_avatar
     from ..body.model import make_test_body
     from ..data.dataset import make_synthetic_sequence

@@ -7,9 +7,15 @@ Ry(2*pi*i/n)``), renders rgb / normal / occ / mask through the frame-0
 camera and writes pngs (+ mp4 when a video backend exists).
 
     python -m soar_tpu_torch.cli.render_rot --synthetic --num-views 4
+    python -m soar_tpu_torch.cli.render_rot --synthetic --ckpt outputs/run/stage1
 
-Only ``--synthetic`` (the procedural fixture, no downloads) is ported;
-checkpoints and real captures arrive with later slices.
+Only ``--synthetic`` (the procedural fixture, no downloads) is ported.
+Without ``--ckpt`` it renders the fixture's own avatar (explicit colours);
+with ``--ckpt`` (a checkpoint directory written by ``cli.train
+--synthetic``) it rebuilds the synthetic avatar the trainer starts from,
+loads the checkpoint into it and renders through the field, as the JAX
+package's CLI does for its own checkpoints.  Reference ``.ckpt`` files and
+real captures arrive with later slices.
 """
 
 from __future__ import annotations
@@ -108,17 +114,35 @@ def main(argv=None):
     ap.add_argument("--use-explicit", action="store_true",
                     help="explicit per-surfel colors/scales (the synthetic "
                          "fixture always renders explicit, as in soar_tpu)")
+    ap.add_argument("--ckpt", type=str, default=None,
+                    help="checkpoint directory written by soar_tpu_torch.cli.train "
+                         "(e.g. <out>/stage1)")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
     if not args.synthetic:
-        ap.error("only --synthetic is ported so far (no checkpoints or captures)")
+        ap.error("only --synthetic is ported so far (no real captures)")
+    if args.ckpt and args.ckpt.endswith(".ckpt"):
+        ap.error("importing a reference .ckpt is not ported yet")
 
-    from ..data.dataset import make_synthetic_sequence
+    if not args.ckpt:
+        from ..data.dataset import make_synthetic_sequence
 
-    ds, (params, model) = make_synthetic_sequence(
-        num_frames=8, image_size=(128, 128), device=args.device
-    )
-    run_turntable(args.out, ds, params, model, True, args.num_views,
+        ds, (params, model) = make_synthetic_sequence(
+            num_frames=8, image_size=(128, 128), device=args.device
+        )
+        run_turntable(args.out, ds, params, model, True, args.num_views,
+                      device=args.device)
+        return
+
+    from ..io.checkpoint import load_avatar
+    from .common import synthetic_setup
+
+    # The one shared synthetic-avatar construction: it must match
+    # cli.train --synthetic or checkpoints stop round-tripping.
+    ds, params, model = synthetic_setup(distill_steps=0, device=args.device)
+    params, step = load_avatar(args.ckpt, params)
+    print(f"loaded {args.ckpt} (step {step})")
+    run_turntable(args.out, ds, params, model, args.use_explicit, args.num_views,
                   device=args.device)
 
 

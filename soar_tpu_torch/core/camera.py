@@ -124,3 +124,46 @@ def focal_from_fov(fov, pixels):
 def ndc2pix(v: torch.Tensor, size, prcp) -> torch.Tensor:
     """``cuda_rasterizer/auxiliary.h:42-46``."""
     return ((v + 1.0) * size - 1.0) * 0.5 + size * (prcp - 0.5)
+
+
+def get_ray_directions(H: int, W: int, focal, principal=None) -> torch.Tensor:
+    """Per-pixel ray directions [H, W, 3] in the OpenGL camera frame (x
+    right, y up, looking down -z), pixel centres at +0.5:
+    ``((i - cx) / fx, -(j - cy) / fy, -1)``.  ``focal`` is ``(fx, fy)``,
+    floats or 0-d tensors; the result lives on their device."""
+    fx, fy = (torch.as_tensor(f, dtype=torch.float32) for f in focal)
+    dev = fx.device
+    if principal is None:
+        cx, cy = W / 2.0, H / 2.0
+    else:
+        cx, cy = principal
+    i = torch.arange(W, dtype=torch.float32, device=dev) + 0.5
+    j = torch.arange(H, dtype=torch.float32, device=dev) + 0.5
+    jj, ii = torch.meshgrid(j, i, indexing="ij")
+    return torch.stack([(ii - cx) / fx, -(jj - cy) / fy, -torch.ones_like(ii)], dim=-1)
+
+
+def get_rays(directions: torch.Tensor, c2w: torch.Tensor, normalize: bool = True):
+    """Rotate camera-frame directions [H, W, 3] into world space with c2w
+    [..., 4, 4]; returns ``(rays_o, rays_d)``, each [..., H, W, 3]."""
+    rays_d = torch.einsum("...ij,hwj->...hwi", c2w[..., :3, :3], directions)
+    if normalize:
+        rays_d = rays_d / torch.clamp_min(torch.linalg.norm(rays_d, dim=-1, keepdim=True), 1e-12)
+    rays_o = c2w[..., None, None, :3, 3].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
+def look_at_c2w(camera_position: torch.Tensor, center: torch.Tensor,
+                up: torch.Tensor) -> torch.Tensor:
+    """OpenGL-style c2w [..., 4, 4]: columns (right, up, -lookat | position)."""
+
+    def unit(v):
+        return v / torch.clamp_min(torch.linalg.norm(v, dim=-1, keepdim=True), 1e-12)
+
+    lookat = unit(center - camera_position)
+    right = unit(torch.linalg.cross(lookat, up, dim=-1))
+    up2 = unit(torch.linalg.cross(right, lookat, dim=-1))
+    R = torch.stack([right, up2, -lookat], dim=-1)
+    c2w = torch.cat([R, camera_position[..., :, None]], dim=-1)
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=c2w.dtype, device=c2w.device)
+    return torch.cat([c2w, bottom.expand(c2w.shape[:-2] + (1, 4))], dim=-2)

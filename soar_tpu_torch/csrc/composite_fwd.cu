@@ -28,21 +28,21 @@
 // It is operation-bound; making it fast (fewer barriers, several pixels per
 // thread, skipping the invalid tail) is later work.
 //
+// The per-slot arithmetic (alpha, the skip tests, the T update) lives in
+// composite_common.cuh, which the backward kernel (composite_bwd.cu)
+// includes too, so both walks reach the same masks.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (see soar_tpu_torch/kernels.py).  Plain C entry
 // point for ctypes; it returns cudaGetLastError() after the launch.
 
 #include <cuda_runtime.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int kXY = 0;
-constexpr int kConic = 2;
-constexpr int kOpac = 5;
-constexpr int kValid = 6;
-constexpr int kE = 7;
-constexpr int kAttr = 9;
-constexpr int kMaxPixels = 256;
+using namespace soar;
 
 template <int C>
 __global__ void __launch_bounds__(kMaxPixels)
@@ -77,25 +77,17 @@ composite_fwd_kernel(const float* __restrict__ feat,  // [NT, K, 9 + C]
     if (__syncthreads_count(!done) == 0) break;  // uniform across the block
     if (done) continue;
     const float* f = s_feat + k * F;
-    if (!(f[kValid] > 0.5f)) continue;
-    const float dx = f[kXY] - px;
-    const float dy = f[kXY + 1] - py;
-    const float power =
-        -0.5f * (f[kConic] * dx * dx + f[kConic + 2] * dy * dy) -
-        f[kConic + 1] * dx * dy;
-    if (!(power <= 0.f)) continue;  // also skips NaN, as the plain where() does
-    const float u = f[kOpac] * expf(power);
-    const float alpha = (u > alpha_clamp) ? alpha_clamp : u;  // keeps NaN
-    if (!(alpha >= alpha_min)) continue;
-    const float t_next = T * (1.f - alpha);
+    Splat s;
+    if (!splat_eval(f, px, py, alpha_clamp, alpha_min, s)) continue;
+    const float t_next = t_after(T, s.alpha);
     if (t_next < t_min) {
       done = true;
       continue;
     }
-    const float w = alpha * T;
+    const float w = s.alpha * T;
 #pragma unroll
     for (int c = 0; c < C; ++c) acc[c] += w * f[kAttr + c];
-    cr += w * (dx * f[kE] + dy * f[kE + 1]);
+    cr += w * (s.dx * f[kE] + s.dy * f[kE + 1]);
     T = t_next;
   }
 

@@ -13,7 +13,9 @@ activations:
 
 The heads are ``nn.Linear`` stacks, whose weight is [out, in]; the JAX
 package stores ``w`` as [in, out] (see :mod:`soar_tpu_torch.io.from_jax`).
-``reset_field`` distillation arrives with the training slice.
+
+:func:`reset_field` is the Adam distillation of explicit surfel attributes
+into the field.
 """
 
 from __future__ import annotations
@@ -135,3 +137,54 @@ def attribute_field_apply(
     if "opacities" in want:
         out["opacities"] = torch.sigmoid(_apply_mlp(field.mlp_opacities, x))
     return out
+
+
+def reset_field(
+    field: AttributeField,
+    xyz: torch.Tensor,
+    gt_shs: torch.Tensor,
+    gt_scales: torch.Tensor,
+    gt_quats: torch.Tensor,
+    steps: int = 1000,
+    lr: float = 1e-3,
+    batch_size: Optional[int] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[AttributeField, torch.Tensor]:
+    """Distill explicit attributes into ``field``: ``steps`` Adam updates
+    (lr 1e-3, optax's defaults) of mse(shs) + 1000 mse(scales) + mse(quats)
+    (``sdf_fields.py:221-250``).  Only the heads in the loss and their
+    encodings are trained; the offsets and opacities heads are left alone.
+    With ``batch_size`` each step draws its minibatch uniformly with
+    replacement from ``generator`` (on the points' device); None keeps the
+    full batch.  Updates ``field`` in place (it holds the only copy of the
+    hash tables) and returns ``(field, per-step losses)``."""
+    pos = normalize_positions(xyz.detach(), field.aabb)[0]
+    targets = (gt_shs.detach(), gt_scales.detach(), gt_quats.detach())
+    trained = [field.encoding, field.quat_encoding]
+    for head in (field.mlp_shs, field.mlp_scales, field.mlp_quats):
+        trained += list(head.parameters())
+    opt = torch.optim.Adam(trained, lr=lr, betas=(0.9, 0.999), eps=1e-8)
+    N = pos.shape[0]
+    use_batch = batch_size is not None and batch_size < N
+    if use_batch and generator is None:
+        generator = torch.Generator(device=pos.device).manual_seed(0)
+    losses = []
+    for _ in range(steps):
+        if use_batch:
+            idx = torch.randint(0, N, (batch_size,), generator=generator,
+                                device=pos.device)
+            pos_b, shs_b, scales_b, quats_b = (a[idx] for a in (pos,) + targets)
+        else:
+            pos_b, (shs_b, scales_b, quats_b) = pos, targets
+        out = attribute_field_apply(field, pos_b, is_normalized=True,
+                                    heads=("shs", "scales", "quats"))
+        loss = (
+            torch.mean((out["shs"] - shs_b) ** 2)
+            + 1000.0 * torch.mean((out["scales"] - scales_b) ** 2)
+            + torch.mean((out["quats"] - quats_b) ** 2)
+        )
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        losses.append(loss.detach())
+    return field, torch.stack(losses) if losses else torch.zeros(0, device=pos.device)

@@ -13,6 +13,7 @@ numpy arrays (``np.asarray`` on every leaf); nothing here imports JAX.
 - ``model``: ``skin`` (``inv_mats``, ``cano_vertices``, ``point_weights``),
   ``smpl_params``, ``aabb``, ``original_pos``, ``num_frames``, ``body``
   and ``field_cfg`` (``dataclasses.asdict`` of the JAX config).
+- the training state's background MLP (``bg_params``).
 
 Carrying ``model.skin`` and the field keeps every random or tie-sensitive
 init step (the field's ``jax.random`` tables, the kNN neighbour sets) out
@@ -102,3 +103,10 @@ def avatar_from_numpy(
         field_cfg=cfg,
     )
     return av, am
+
+
+def background_from_numpy(bg: Dict, device="cuda") -> Dict:
+    """The JAX package's background MLP (``{"layers": [{"w": [in, out]}]}``,
+    as numpy) in the port's layout, which is the same."""
+    dev = resolve_device(device)
+    return {"layers": [{k: _t(v, dev) for k, v in layer.items()} for layer in bg["layers"]]}

@@ -3,10 +3,11 @@
 Each source is compiled by ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface, loaded with ``ctypes``.  Libraries go to
 ``soar_tpu_torch/_build/`` (git-ignored), named by a hash of their source,
-the nvcc flags and ``nvcc --version``, so a kernel edited, or built with
-other flags or another nvcc, is rebuilt and a stale one is never loaded.  Nothing is
-built at import: :func:`load` builds on first use, :func:`build` builds
-several sources at once (one ``nvcc`` process each, started together).
+the shared headers (``csrc/*.cuh``), the nvcc flags and ``nvcc --version``,
+so a kernel edited, or built with other flags or another nvcc, is rebuilt
+and a stale one is never loaded.  Nothing is built at import: :func:`load`
+builds on first use, :func:`build` builds several sources at once (one
+``nvcc`` process each, started together).
 """
 
 from __future__ import annotations
@@ -32,6 +33,11 @@ SOURCES = {
         "csrc/composite_fwd.cu",
         # feat, pixf, accum, corr, t_out, NT, K, P, C, clamp, a_min, t_min, stream
         [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
+    ),
+    "composite_bwd": (
+        "csrc/composite_bwd.cu",
+        # feat, pixf, gacc, gcorr, gT, gfeat, NT, K, P, C, clamp, a_min, t_min, stream
+        [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     ),
 }
 
@@ -70,6 +76,8 @@ def nvcc_version() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256((_PKG / SOURCES[name][0]).read_bytes())
+    for header in sorted((_PKG / "csrc").glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update("\0".join([*NVCC_FLAGS, nvcc_version()]).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

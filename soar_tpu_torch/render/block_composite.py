@@ -1,14 +1,17 @@
-"""Per-tile alpha composite: the CUDA kernel's wrapper (port of
+"""Per-tile alpha composite: the CUDA kernels' wrappers (port of
 ``soar_tpu.render.block_composite``).
 
 :func:`composite_block` has the signature and outputs of the JAX
 ``composite_block``.  A CPU tensor goes to the plain PyTorch version
-(:func:`soar_tpu_torch.render.composite.composite_block_plain`); a CUDA
-tensor launches ``csrc/composite_fwd.cu`` or raises — there is no
-fallback.  Only the forward exists: an input that requires grad on CUDA
-raises until the backward kernel is ported with the training slice.
+(:func:`soar_tpu_torch.render.composite.composite_block_plain`), with
+autograd through it; a CUDA tensor launches ``csrc/composite_fwd.cu``, and
+its gradient launches ``csrc/composite_bwd.cu`` — there is no fallback.
+The pair is one ``torch.autograd.Function`` (the JAX package's custom VJP):
+its forward saves only the packed features and the pixel centres, and the
+backward recomputes the walk.  Gradients reach xy, conic, opacity, e and
+attrs; ``valid`` and ``pixf`` get none.
 
-Feature packing handed to the kernel (one [NT, K, F] array, F = 9 + C),
+Feature packing handed to the kernels (one [NT, K, F] array, F = 9 + C),
 as in the JAX package:
 
     0:2  xy        splat mean (pixels)
@@ -26,11 +29,99 @@ from typing import Tuple
 import torch
 
 from .. import kernels
-from .composite import composite_block_plain
+from .composite import composite_block_bwd_plain, composite_block_plain
 
-MAX_CHANNELS = 16  # the kernel is instantiated for C = 1..16
+MAX_CHANNELS = 16  # the kernels are instantiated for C = 1..16
 MAX_PIXELS = 256  # one thread per pixel: 16x16 tiles
 _SMEM_LIMIT = 48 * 1024  # static-launch shared memory per block
+
+
+def _pack(xy, conic, opac, valid, attrs, e) -> torch.Tensor:
+    return torch.cat(
+        [xy, conic, opac[..., None], valid.to(xy.dtype)[..., None], e, attrs], dim=-1
+    )
+
+
+def _check(feat: torch.Tensor, pixf: torch.Tensor):
+    NT, K, F = feat.shape
+    C, P = F - 9, pixf.shape[1]
+    if feat.dtype != torch.float32 or pixf.dtype != torch.float32:
+        raise TypeError("the composite kernels take float32 inputs")
+    if not (1 <= C <= MAX_CHANNELS) or not (1 <= P <= MAX_PIXELS):
+        raise ValueError(f"kernels take 1..{MAX_CHANNELS} channels and "
+                         f"1..{MAX_PIXELS} pixels per tile, got C={C}, P={P}")
+    if K * F * 4 > _SMEM_LIMIT:
+        raise ValueError(f"K={K} slots x {F} features exceed the kernels' "
+                         f"{_SMEM_LIMIT} B of shared memory")
+    if tuple(pixf.shape) != (NT, P, 2):
+        raise ValueError("composite_block: inconsistent tile/slot shapes")
+    return NT, K, C, P
+
+
+def _launch_fwd(feat, pixf, alpha_clamp, alpha_min, t_min):
+    """composite_fwd.cu: returns accum [NT, C, P], corr [NT, P], T [NT, P]."""
+    NT, K, C, P = _check(feat, pixf)
+    accum = torch.empty((NT, C, P), dtype=torch.float32, device=feat.device)
+    corr = torch.empty((NT, P), dtype=torch.float32, device=feat.device)
+    T = torch.empty((NT, P), dtype=torch.float32, device=feat.device)
+    stream = torch.cuda.current_stream(feat.device).cuda_stream
+    err = kernels.load("composite_fwd").composite_fwd(
+        feat.data_ptr(), pixf.data_ptr(), accum.data_ptr(), corr.data_ptr(),
+        T.data_ptr(), NT, K, P, C,
+        float(alpha_clamp), float(alpha_min), float(t_min), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error {err}")
+    composite_block.launches += 1
+    return accum, corr, T
+
+
+def _launch_bwd(feat, pixf, gacc, gcorr, gT, alpha_clamp, alpha_min, t_min):
+    """composite_bwd.cu: returns gfeat [NT, K, F] (zero ``valid`` column)."""
+    NT, K, C, P = _check(feat, pixf)
+    gacc = gacc.to(torch.float32).contiguous()
+    gcorr = gcorr.to(torch.float32).contiguous()
+    gT = gT.to(torch.float32).contiguous()
+    if (tuple(gacc.shape) != (NT, C, P) or tuple(gcorr.shape) != (NT, P)
+            or tuple(gT.shape) != (NT, P)):
+        raise ValueError("composite_block_bwd: cotangent shapes do not match")
+    gfeat = torch.empty_like(feat)
+    stream = torch.cuda.current_stream(feat.device).cuda_stream
+    err = kernels.load("composite_bwd").composite_bwd(
+        feat.data_ptr(), pixf.data_ptr(), gacc.data_ptr(), gcorr.data_ptr(),
+        gT.data_ptr(), gfeat.data_ptr(), NT, K, P, C,
+        float(alpha_clamp), float(alpha_min), float(t_min), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"composite_bwd kernel launch failed: CUDA error {err}")
+    composite_block.bwd_launches += 1
+    return gfeat
+
+
+class _Composite(torch.autograd.Function):
+    """The kernel pair as one differentiable op on the packed features."""
+
+    @staticmethod
+    def forward(ctx, feat, pixf, alpha_clamp, alpha_min, t_min):
+        ctx.save_for_backward(feat, pixf)
+        ctx.consts = (alpha_clamp, alpha_min, t_min)
+        return _launch_fwd(feat, pixf, alpha_clamp, alpha_min, t_min)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, gacc, gcorr, gT):
+        feat, pixf = ctx.saved_tensors
+        gfeat = _launch_bwd(feat, pixf, gacc, gcorr, gT, *ctx.consts)
+        return gfeat, None, None, None, None
+
+
+def _on_one_device(name, args):
+    dev = args[0].device
+    if dev.type != "cuda" or any(t.device != dev for t in args):
+        raise ValueError(
+            f"{name} takes CPU or CUDA tensors on one device, got "
+            f"{sorted({str(t.device) for t in args})}"
+        )
 
 
 def composite_block(
@@ -50,52 +141,40 @@ def composite_block(
     args = (xy, conic, opac, valid, attrs, e, pixf)
     if xy.device.type == "cpu":
         return composite_block_plain(*args, alpha_clamp, alpha_min, t_min)
-    if xy.device.type != "cuda" or any(t.device != xy.device for t in args):
-        raise ValueError(
-            f"composite_block takes CPU or CUDA tensors on one device, got "
-            f"{sorted({str(t.device) for t in args})}"
-        )
-    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
-        raise NotImplementedError(
-            "composite_block on CUDA is forward-only: its backward kernel "
-            "arrives with the training slice of the port"
-        )
-    NT, K = xy.shape[:2]
-    C = attrs.shape[-1]
-    P = pixf.shape[1]
-    feat = torch.cat(
-        [xy, conic, opac[..., None], valid.to(xy.dtype)[..., None], e, attrs],
-        dim=-1,
-    ).contiguous()
-    pixf = pixf.contiguous()
-    F = feat.shape[-1]
-    if feat.dtype != torch.float32 or pixf.dtype != torch.float32:
-        raise TypeError("composite_block's kernel takes float32 inputs")
-    if not (1 <= C <= MAX_CHANNELS) or not (1 <= P <= MAX_PIXELS):
-        raise ValueError(f"kernel takes 1..{MAX_CHANNELS} channels and "
-                         f"1..{MAX_PIXELS} pixels per tile, got C={C}, P={P}")
-    if K * F * 4 > _SMEM_LIMIT:
-        raise ValueError(f"K={K} slots x {F} features exceed the kernel's "
-                         f"{_SMEM_LIMIT} B of shared memory")
-    if tuple(pixf.shape) != (NT, P, 2) or feat.shape[:2] != (NT, K):
-        raise ValueError("composite_block: inconsistent tile/slot shapes")
-
-    accum = torch.empty((NT, C, P), dtype=torch.float32, device=xy.device)
-    corr = torch.empty((NT, P), dtype=torch.float32, device=xy.device)
-    T = torch.empty((NT, P), dtype=torch.float32, device=xy.device)
-    lib = kernels.load("composite_fwd")
-    stream = torch.cuda.current_stream(xy.device).cuda_stream
-    err = lib.composite_fwd(
-        feat.data_ptr(), pixf.data_ptr(), accum.data_ptr(), corr.data_ptr(),
-        T.data_ptr(), NT, K, P, C,
-        float(alpha_clamp), float(alpha_min), float(t_min), stream,
+    _on_one_device("composite_block", args)
+    # The packing stays outside the Function, so autograd splits the packed
+    # gradient back onto xy, conic, opac, e and attrs.
+    feat = _pack(xy, conic, opac, valid, attrs, e).contiguous()
+    accum, corr, T = _Composite.apply(
+        feat, pixf.contiguous(), float(alpha_clamp), float(alpha_min), float(t_min)
     )
-    if err != 0:
-        raise RuntimeError(f"composite_fwd kernel launch failed: CUDA error {err}")
-    composite_block.launches += 1
     return accum.transpose(1, 2), corr, T
 
 
-# Kernel launches since the last reset; chip_smoke.py reads it to show the
-# render path went through the kernel.
+def composite_block_bwd(
+    xy, conic, opac, valid, attrs, e, pixf,
+    gacc: torch.Tensor,  # [NT, C, P] cotangent of accum (the kernel's layout)
+    gcorr: torch.Tensor,  # [NT, P]
+    gT: torch.Tensor,  # [NT, P]
+    alpha_clamp: float = 0.99,
+    alpha_min: float = 1.0 / 255.0,
+    t_min: float = 1e-4,
+) -> torch.Tensor:
+    """The backward as a function: per-slot gradients in the [NT, K, F]
+    packing (zero ``valid`` column).  CPU tensors go to
+    :func:`composite_block_bwd_plain`; CUDA tensors launch the kernel."""
+    args = (xy, conic, opac, valid, attrs, e, pixf)
+    if xy.device.type == "cpu":
+        return composite_block_bwd_plain(*args, gacc, gcorr, gT,
+                                         alpha_clamp, alpha_min, t_min)
+    _on_one_device("composite_block_bwd", args + (gacc, gcorr, gT))
+    with torch.no_grad():
+        feat = _pack(xy, conic, opac, valid, attrs, e).contiguous()
+    return _launch_bwd(feat, pixf.contiguous(), gacc, gcorr, gT,
+                       alpha_clamp, alpha_min, t_min)
+
+
+# Kernel launches since the last reset, forward and backward; chip_smoke.py
+# reads them to show the render and training paths went through the kernels.
 composite_block.launches = 0
+composite_block.bwd_launches = 0

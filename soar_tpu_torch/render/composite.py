@@ -111,21 +111,74 @@ def composite_block_plain(
     alpha_clamp: float = 0.99,
     alpha_min: float = 1.0 / 255.0,
     t_min: float = 1e-4,
+    compute_dtype: torch.dtype = torch.float32,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The function ``soar_tpu.render.block_composite.composite_block``
     computes, through the dense [NT, P, K] cumprod chain.
 
     Returns ``(accum [NT, P, C], corr [NT, P], T [NT, P])``; the caller
     SUBTRACTS ``corr = sum_k w_k * (dx*e0 + dy*e1)`` from the depth channel.
+
+    ``compute_dtype=torch.bfloat16`` is the JAX package's bf16 XLA chain
+    (``RasterConfig.composite_dtype``): the splat set is decided in f32,
+    alpha, the exclusion cumprod and the weights ride bf16, and the channel
+    sums accumulate bf16 values in f32.  As there, the plane-corrected depth
+    is rounded per pixel-slot: the last channel's ``attr - dif_z`` goes to
+    bf16 whole, and ``corr`` returns what the caller's subtraction needs.
     """
     d = xy[:, None, :, :] - pixf[:, :, None, :]  # [NT, P, K, 2]
     alpha = splat_alpha(
         d, conic[:, None], opac[:, None], valid[:, None], alpha_clamp, alpha_min
     )
-    weights, t_final = composite_weights(alpha, t_min)
-    accum = torch.einsum("npk,nkc->npc", weights, attrs)
-    corr = torch.sum(
-        weights * (d[..., 0] * e[:, None, :, 0] + d[..., 1] * e[:, None, :, 1]),
+    dif_z = d[..., 0] * e[:, None, :, 0] + d[..., 1] * e[:, None, :, 1]
+    if compute_dtype == torch.float32:
+        weights, t_final = composite_weights(alpha, t_min)
+        accum = torch.einsum("npk,nkc->npc", weights, attrs)
+        corr = torch.sum(weights * dif_z, dim=-1)
+        return accum, corr, t_final
+    if compute_dtype != torch.bfloat16:
+        raise ValueError(f"compute_dtype must be float32 or bfloat16, got {compute_dtype}")
+    weights, t_final = composite_weights(alpha.to(torch.bfloat16), t_min)
+    w = weights.float()
+    rounded = attrs.to(torch.bfloat16).float()
+    accum = torch.einsum("npk,nkc->npc", w, rounded)
+    depth_k = (attrs[:, None, :, -1] - dif_z).to(torch.bfloat16).float()
+    corr = torch.sum(w * (rounded[:, None, :, -1] - depth_k), dim=-1)
+    return accum, corr, t_final.float()
+
+
+def composite_block_bwd_plain(
+    xy: torch.Tensor,
+    conic: torch.Tensor,
+    opac: torch.Tensor,
+    valid: torch.Tensor,
+    attrs: torch.Tensor,
+    e: torch.Tensor,
+    pixf: torch.Tensor,
+    gacc: torch.Tensor,  # [NT, C, P] cotangent of accum (the kernel's layout)
+    gcorr: torch.Tensor,  # [NT, P]
+    gT: torch.Tensor,  # [NT, P]
+    alpha_clamp: float = 0.99,
+    alpha_min: float = 1.0 / 255.0,
+    t_min: float = 1e-4,
+) -> torch.Tensor:
+    """The plain version of the composite's backward: ``torch.autograd.grad``
+    through :func:`composite_block_plain`, whose ``where`` masks autograd
+    treats as constants, as XLA's autodiff does.  Returns the per-slot
+    gradients in the kernel's [NT, K, F] packing (F = 9 + C; the ``valid``
+    column is zero)."""
+    with torch.enable_grad():
+        leaves = [a.detach().requires_grad_() for a in (xy, conic, opac, attrs, e)]
+        gxy_in, gconic_in, gop_in, gattr_in, ge_in = leaves
+        outs = composite_block_plain(
+            gxy_in, gconic_in, gop_in, valid, gattr_in, ge_in, pixf,
+            alpha_clamp, alpha_min, t_min,
+        )
+        gxy, gconic, gop, gattrs, ge = torch.autograd.grad(
+            outs, leaves, grad_outputs=(gacc.transpose(1, 2), gcorr, gT),
+            allow_unused=True, materialize_grads=True,
+        )
+    return torch.cat(
+        [gxy, gconic, gop[..., None], torch.zeros_like(gop)[..., None], ge, gattrs],
         dim=-1,
     )
-    return accum, corr, t_final

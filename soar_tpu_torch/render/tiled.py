@@ -6,10 +6,12 @@ per-tile ranges; a first-K gather of each tile's depth-ascending run; the
 per-tile composite; output assembly.  The composite is
 :func:`soar_tpu_torch.render.block_composite.composite_block` (the CUDA
 kernel on CUDA tensors, its plain version on CPU tensors) unless
-``RasterConfig.composite == "plain"``.
+``RasterConfig.composite == "plain"``, which also honours
+``composite_dtype="bf16"``.
 
-The back-surface pass (``compose_reverse`` / ``rasterize_front_back``,
-the reversed gather) arrives with the training slice.
+The back-surface pass walks each tile's ascending run farthest-first (the
+reversed gather), either alone (``compose_reverse``) or beside the front
+pass from one sort (:func:`rasterize_front_back`).
 """
 
 from __future__ import annotations
@@ -158,6 +160,26 @@ def rasterize_with_occ(
     return _rasterize_core(g, camera, image_size, bg_color, cfg, occ_colors)
 
 
+def rasterize_front_back(
+    g: GaussianInputs,
+    occ_colors: torch.Tensor,
+    camera: Camera,
+    image_size: Tuple[int, int],
+    bg_color: torch.Tensor,
+    cfg: RasterConfig = RasterConfig(),
+) -> Tuple[RenderOutputs, RenderOutputs, RenderOutputs]:
+    """Front-surface pass + back-surface pass + occlusion pass, all from one
+    preprocess / binning / sort / gather: the back pass walks each tile's
+    ascending run farthest-first (the reversed gather).  Returns
+    ``(front, back, occ)``."""
+    if cfg.sort_descending or cfg.compose_reverse:
+        raise ValueError("rasterize_front_back takes an ascending, forward config")
+    (front, back), occ = _rasterize_core(
+        g, camera, image_size, bg_color, cfg, occ_colors, also_back=True
+    )
+    return front, back, occ
+
+
 def _rasterize_core(
     g: GaussianInputs,
     camera: Camera,
@@ -165,17 +187,19 @@ def _rasterize_core(
     bg_color: torch.Tensor,
     cfg: RasterConfig,
     occ_colors: Optional[torch.Tensor],
+    also_back: bool = False,
 ):
-    if cfg.compose_reverse:
-        raise NotImplementedError(
-            "compose_reverse (the back-surface pass) arrives with the "
-            "training slice of the port"
-        )
     H, W = image_size
     tile = cfg.tile
     K = cfg.max_per_tile
     dev = g.means3d.device
-    composite = composite_block if cfg.composite == "kernel" else composite_block_plain
+    if cfg.composite == "kernel":
+        composite = composite_block
+    else:
+        cdt = torch.bfloat16 if cfg.composite_dtype == "bf16" else torch.float32
+
+        def composite(*args):
+            return composite_block_plain(*args, compute_dtype=cdt)
 
     pre = preprocess(g, camera, image_size, cfg)
     sorted_idx, starts, counts, (ntx, nty), overflow = bin_and_sort(
@@ -205,12 +229,19 @@ def _rasterize_core(
     # short tile run (masked by slot_valid), and NaN*0 would stay NaN.
     packed = torch.where(pre.valid[:, None], packed, 0.0)
 
-    # First-K gather of each tile's depth-ascending run: truncation drops
-    # the farthest splats.  Entries past a tile's count read neighbouring
-    # runs and are masked by slot_valid.
-    entry = torch.clamp(starts[:, None] + k_ar[None, :], 0, M - 1)  # [NT, K]
-    gidx = sorted_idx[entry]
-    gf = packed[gidx]
+    def gather(reverse: bool):
+        """First-K gather of each tile's depth-ascending run; truncation
+        drops the farthest splats.  ``reverse`` walks the run from its far
+        end (offset ``count-1-k``), the back-surface order, keeping the
+        farthest K.  Entries past a tile's count read neighbouring runs (or
+        below its start, reversed) and are masked by slot_valid."""
+        if reverse:
+            off = counts[:, None] - 1 - k_ar[None, :]
+        else:
+            off = k_ar[None, :].expand(NT, K)
+        entry = torch.clamp(starts[:, None] + off, 0, M - 1)  # [NT, K]
+        gidx = sorted_idx[entry]
+        return gidx, packed[gidx]
 
     # Per-tile pixel coordinates [NT, tile*tile, 2].
     t_ar = torch.arange(NT, dtype=torch.int64, device=dev)
@@ -227,57 +258,71 @@ def _rasterize_core(
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
     composite_args = (cfg.alpha_clamp, cfg.alpha_min, cfg.transmittance_min)
 
-    xy = gf[..., 0:2]
-    conic = gf[..., 2:5]
-    opac = gf[..., 5]
-    depths = gf[..., 6]
-    view_dot_g = gf[..., 7]
-    jinv = gf[..., 8:18]
-    normals = gf[..., 18:21]
-    colors = gf[..., 21:21 + C_ch]
-    if cfg.surface and cfg.perpix_depth:
-        # dif_z = dx*e0 + dy*e1, the linear form of the plane correction.
-        e = torch.stack(
-            [
-                jinv[..., 0] * jinv[..., 6] + jinv[..., 2] * jinv[..., 9],
-                jinv[..., 1] * jinv[..., 6] + jinv[..., 3] * jinv[..., 9],
-            ],
-            dim=-1,
+    def composite_main(gf):
+        """The main-pass composite of one gathered slot order."""
+        xy = gf[..., 0:2]
+        conic = gf[..., 2:5]
+        opac = gf[..., 5]
+        depths = gf[..., 6]
+        jinv = gf[..., 8:18]
+        normals = gf[..., 18:21]
+        colors = gf[..., 21:21 + C_ch]
+        if cfg.surface and cfg.perpix_depth:
+            # dif_z = dx*e0 + dy*e1, the linear form of the plane correction.
+            e = torch.stack(
+                [
+                    jinv[..., 0] * jinv[..., 6] + jinv[..., 2] * jinv[..., 9],
+                    jinv[..., 1] * jinv[..., 6] + jinv[..., 3] * jinv[..., 9],
+                ],
+                dim=-1,
+            )
+        else:
+            e = torch.zeros_like(xy)
+        parts = [colors]
+        if cfg.surface:
+            parts.append(normals)
+        parts.append(depths[..., None])
+        attrs = torch.cat(parts, dim=-1)
+        accum, corr, t_final = composite(
+            xy, conic, opac, slot_valid, attrs, e, pixf, *composite_args
         )
-    else:
-        e = torch.zeros_like(xy)
-    parts = [colors]
-    if cfg.surface:
-        parts.append(normals)
-    parts.append(depths[..., None])
-    attrs = torch.cat(parts, dim=-1)
-    accum, corr, t_final = composite(
-        xy, conic, opac, slot_valid, attrs, e, pixf, *composite_args
-    )
-    accum_color = accum[..., :C_ch]
-    if cfg.surface:
-        accum_normal = accum[..., C_ch:C_ch + 3]
-    else:
-        accum_normal = torch.zeros(accum.shape[:-1] + (3,), dtype=accum.dtype, device=dev)
-    accum_depth = accum[..., -1] - corr
-    color, normal, depth, opac_out, T = finalize_accum(
-        accum_color, accum_normal, accum_depth, t_final, bg, cfg.normalize_depth
-    )
-    main_out = RenderOutputs(
-        color=untile(color, C_ch),
-        normal=untile(normal, 3),
-        depth=untile(depth[..., None], 1)[..., 0],
-        opac=untile(opac_out[..., None], 1)[..., 0],
-        transmittance=untile(T[..., None], 1)[..., 0],
-        overflow=overflow,
-        visible=pre.valid,
-    )
-    if occ_colors is None:
-        return main_out, None
+        accum_color = accum[..., :C_ch]
+        if cfg.surface:
+            accum_normal = accum[..., C_ch:C_ch + 3]
+        else:
+            accum_normal = torch.zeros(accum.shape[:-1] + (3,), dtype=accum.dtype, device=dev)
+        accum_depth = accum[..., -1] - corr
+        color, normal, depth, opac_out, T = finalize_accum(
+            accum_color, accum_normal, accum_depth, t_final, bg, cfg.normalize_depth
+        )
+        return RenderOutputs(
+            color=untile(color, C_ch),
+            normal=untile(normal, 3),
+            depth=untile(depth[..., None], 1)[..., 0],
+            opac=untile(opac_out[..., None], 1)[..., 0],
+            transmittance=untile(T[..., None], 1)[..., 0],
+            overflow=overflow,
+        )
 
-    # Occlusion pass: back-facing splats culled, geometry detached, zero
-    # depth correction (``diff_gaussian_rasterizer.py:281-291``).
-    front = view_dot_g <= -0.01
+    if also_back:
+        gidx, g_front = gather(False)
+        ref_out = composite_main(g_front)._replace(visible=pre.valid)
+        main_ret = (ref_out, composite_main(gather(True)[1]))
+    else:
+        gidx, g_front = gather(cfg.compose_reverse)
+        main_ret = ref_out = composite_main(g_front)._replace(visible=pre.valid)
+        if cfg.compose_reverse and occ_colors is not None:
+            # The occ pass is always front-to-back ascending: re-gather.
+            gidx, g_front = gather(False)
+    if occ_colors is None:
+        return main_ret, None
+
+    # Occlusion pass: back-facing splats culled, zero depth correction, and
+    # xy / conic detached as the reference detaches the occ-pass geometry
+    # (``diff_gaussian_rasterizer.py:281-291``); opacity and the occ colors
+    # keep their gradients, as in the JAX package.
+    xy, conic, opac = g_front[..., 0:2], g_front[..., 2:5], g_front[..., 5]
+    front = g_front[..., 7] <= -0.01
     occ_g = occ_colors[gidx]
     Cb = occ_colors.shape[-1]
     accum_b, _, t_final_b = composite(
@@ -288,9 +333,9 @@ def _rasterize_core(
     color_b = accum_b + Tb[..., None] * bg
     occ_out = RenderOutputs(
         color=untile(color_b, Cb),
-        normal=main_out.normal,
-        depth=main_out.depth,
+        normal=ref_out.normal,
+        depth=ref_out.depth,
         opac=untile((1.0 - Tb)[..., None], 1)[..., 0],
         transmittance=untile(Tb[..., None], 1)[..., 0],
     )
-    return main_out, occ_out
+    return main_ret, occ_out

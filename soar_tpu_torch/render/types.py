@@ -28,6 +28,13 @@ class RasterConfig:
     which launches the CUDA kernel for CUDA tensors and runs the plain
     PyTorch version for CPU tensors; ``"plain"`` forces the plain version on
     any device (it exists so the kernel can be held against it on the card).
+
+    ``composite_dtype="bf16"`` is the JAX package's bf16 XLA chain and acts
+    under ``composite="plain"`` only (:func:`soar_tpu_torch.render.composite.
+    composite_block_plain`).  Under ``composite="kernel"`` nothing reads it:
+    the kernels composite in f32, as the JAX package's Pallas kernels do
+    whatever ``composite_dtype`` says, and a CPU tensor's stand-in for the
+    kernel is the f32 plain version.
     """
 
     surface: bool = True
@@ -56,14 +63,9 @@ class RasterConfig:
             raise ValueError(
                 f"composite must be 'kernel' or 'plain', got {self.composite!r}"
             )
-        if self.composite_dtype == "bf16":
-            raise NotImplementedError(
-                "composite_dtype='bf16' arrives with the training slice of "
-                "the port (bf16 composite and the backward kernel)"
-            )
-        if self.composite_dtype != "f32":
+        if self.composite_dtype not in ("f32", "bf16"):
             raise ValueError(
-                f"composite_dtype must be 'f32', got {self.composite_dtype!r}"
+                f"composite_dtype must be 'f32' or 'bf16', got {self.composite_dtype!r}"
             )
 
 

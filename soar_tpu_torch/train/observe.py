@@ -1,0 +1,87 @@
+"""Observability: step timing, metric logging, image dumps (port of
+``soar_tpu.train.observe``).
+
+- :class:`StepTimer`: rolling per-phase wall-clock means;
+- :class:`MetricLogger`: one JSON line per logged step in
+  ``<out>/metrics.jsonl`` (wandb is not ported);
+- :func:`dump_debug_images`: the render / mask / normal / pred_normal /
+  occ / depth / curv pngs of one step.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import time
+from collections import defaultdict, deque
+from typing import Dict, Optional
+
+import numpy as np
+
+
+class StepTimer:
+    def __init__(self, window: int = 50):
+        self.window = window
+        self.times = defaultdict(lambda: deque(maxlen=window))
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        yield
+        self.times[name].append(time.perf_counter() - t0)
+
+    def summary(self) -> Dict[str, float]:
+        return {k: float(np.mean(v)) for k, v in self.times.items() if len(v)}
+
+
+class MetricLogger:
+    """Appends ``{"step": ..., <metric>: float, ...}`` rows to
+    ``<out_dir>/metrics.jsonl``."""
+
+    def __init__(self, out_dir: str):
+        os.makedirs(out_dir, exist_ok=True)
+        self.f = open(os.path.join(out_dir, "metrics.jsonl"), "a")
+
+    def log(self, step: int, metrics: Dict):
+        row = {"step": int(step)}
+        row.update({k: float(v) for k, v in metrics.items()})
+        self.f.write(json.dumps(row) + "\n")
+        self.f.flush()
+
+    def close(self):
+        self.f.close()
+
+
+def _np(x) -> np.ndarray:
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    a = np.asarray(x)
+    return a[0] if a.ndim == 4 else a
+
+
+def dump_debug_images(out_dir: str, step: int, render_out: Dict, gt: Optional[Dict] = None):
+    """Per-channel debug pngs under ``<out_dir>/test_<step>/``."""
+    from .evaluate import save_png
+
+    d = os.path.join(out_dir, f"test_{step}")
+    os.makedirs(d, exist_ok=True)
+    for key in ("render", "normal", "pred_normal", "occ"):
+        if key in render_out:
+            save_png(os.path.join(d, f"test_{step}_{key}.png"), _np(render_out[key]))
+    for key in ("mask", "curv"):
+        if key in render_out:
+            img = _np(render_out[key])
+            if img.ndim == 2:
+                img = img[..., None].repeat(3, -1)
+            save_png(os.path.join(d, f"test_{step}_{key}.png"), img)
+    if "depth" in render_out:
+        dep = _np(render_out["depth"])
+        lo, hi = np.percentile(dep[dep > 0], [5, 95]) if (dep > 0).any() else (0, 1)
+        dn = np.clip((dep - lo) / max(hi - lo, 1e-6), 0, 1)
+        save_png(os.path.join(d, f"test_{step}_depth.png"), dn[..., None].repeat(3, -1))
+    for key, img in (gt or {}).items():
+        img = np.asarray(img)
+        if img.ndim == 2:
+            img = img[..., None].repeat(3, -1)
+        save_png(os.path.join(d, f"test_{step}_gt_{key}.png"), img)

@@ -260,8 +260,49 @@ def test_init_avatar_matches_jax_on_its_deterministic_parts():
     for name in ("get_rotation", "get_normal", "get_scaling", "get_opacity", "get_colors",
                  "get_occ"):
         assert_close(getattr(tstate, name)(tp), getattr(jstate, name)(jp), 1e-5, msg=name)
-    with pytest.raises(NotImplementedError):
-        tstate.init_avatar(tb, sp, num_subdiv=1, distill_steps=10, device="cpu")
+    # distill_steps > 0 distils the field: its result is JAX's reset_field
+    # from the same field on the same points (full batch, so no draws).
+    # Adam's first steps move each entry by ~lr whatever |g|, so an entry
+    # whose gradient is rounding noise may move the other way: 1% of the
+    # entries may differ by more than 1e-5.
+    from soar_tpu.field.attribute_field import AttributeFieldConfig as JFieldConfig
+    from soar_tpu.field.attribute_field import reset_field as jreset_field
+    from soar_tpu.field.hashgrid import HashGridConfig as JGridConfig
+    from soar_tpu_torch.field.attribute_field import AttributeFieldConfig
+    from soar_tpu_torch.field.hashgrid import HashGridConfig
+
+    small = dict(num_levels=4, min_res=4, max_res=64, log2_hashmap_size=12)
+    tcfg = AttributeFieldConfig(grid=HashGridConfig(**small), hidden_dim=16)
+    jcfg = JFieldConfig(grid=JGridConfig(**small), hidden_dim=16)
+    tp0, _ = tstate.init_avatar(tb, sp, num_subdiv=1, field_cfg=tcfg, distill_steps=0,
+                                device="cpu")
+    tp10, _ = tstate.init_avatar(tb, sp, num_subdiv=1, field_cfg=tcfg, distill_steps=10,
+                                 device="cpu")
+    assert_close(tp10.xyz, tp0.xyz, 0)
+    f0 = tp0.field
+    jfield = {"aabb": jnp.asarray(n(f0.aabb)), "encoding": jnp.asarray(n(f0.encoding)),
+              "quat_encoding": jnp.asarray(n(f0.quat_encoding))}
+    for head in ("mlp_shs", "mlp_scales", "mlp_quats", "mlp_offsets", "mlp_opacities"):
+        jfield[head] = [{"w": jnp.asarray(n(lin.weight).T), "b": jnp.asarray(n(lin.bias))}
+                        for lin in getattr(f0, head)]
+    with torch.no_grad():
+        pts = tp0.xyz
+        pts2 = torch.cat([pts, pts + 0.001 * tstate.get_normal(tp0)])
+        N2 = pts2.shape[0]
+        targets = (np.full((N2, 3), 0.5, np.float32),
+                   n(torch.cat([tstate.get_scaling(tp0)] * 2)),
+                   n(torch.cat([tstate.get_rotation(tp0)] * 2)))
+    jf, _ = jreset_field(jfield, jnp.asarray(n(pts2)), *(jnp.asarray(a) for a in targets),
+                         cfg=jcfg, steps=10)
+    f10 = tp10.field
+    for name, got, want in [("encoding", f10.encoding, jf["encoding"]),
+                            ("quat_encoding", f10.quat_encoding, jf["quat_encoding"])] + [
+            (f"{head}{i}", lin.weight.T, jf[head][i]["w"])
+            for head in ("mlp_shs", "mlp_scales", "mlp_quats", "mlp_offsets")
+            for i, lin in enumerate(getattr(f10, head))]:
+        diff = np.abs(n(got) - np.asarray(want))
+        assert np.mean(diff > 1e-5) <= 0.01, (name, float(diff.max()))
+    assert float((f10.encoding - f0.encoding).detach().abs().max()) > 1e-4  # it moved
 
 
 def test_frame_params_and_live_affines_match_jax():
@@ -302,10 +343,38 @@ def test_raster_config_defaults_match_jax():
             continue  # "xla"/"pallas" in JAX; "kernel"/"plain" in the port
         assert getattr(tc, f) == getattr(jc, f), f
     assert tc.composite == "kernel"
-    with pytest.raises(NotImplementedError, match="training slice"):
-        ttypes.RasterConfig(composite_dtype="bf16")
     with pytest.raises(ValueError):
         ttypes.RasterConfig(composite="xla")
+    with pytest.raises(ValueError):
+        ttypes.RasterConfig(composite_dtype="f16")
+    # bf16 constructs, and the plain chain's bf16 output is JAX's XLA bf16
+    # chain's (``tiled.py:425-430, 534-546``): alpha rounded to bf16 after
+    # the splat set is decided in f32, channels and the per-pixel-slot
+    # plane-corrected depth rounded to bf16, sums accumulated in f32.  Both
+    # round to 8 bits of mantissa at different places (XLA's and torch's
+    # bf16 cumprod), so 2e-2, with 2% of the pixels allowed a T-cutoff flip.
+    assert ttypes.RasterConfig(composite_dtype="bf16").composite_dtype == "bf16"
+    from soar_tpu.render import composite as jcomp
+    from soar_tpu_torch.render import composite as tcomp
+    from torch_port_helpers import assert_close_share, make_scene
+
+    xy, conic, opac, valid, attrs, e, pixf = make_scene(NT=6, K=24, C=7, seed=3)
+    bf = jnp.bfloat16
+    d = jnp.asarray(xy)[:, None] - jnp.asarray(pixf)[:, :, None]
+    alpha = jcomp.splat_alpha(d, jnp.asarray(conic)[:, None], jnp.asarray(opac)[:, None],
+                              jnp.asarray(valid)[:, None]).astype(bf)
+    w, T = jcomp.composite_weights(alpha)
+    dif_z = d[..., 0] * jnp.asarray(e)[:, None, :, 0] + d[..., 1] * jnp.asarray(e)[:, None, :, 1]
+    depth_k = (jnp.asarray(attrs)[:, None, :, -1] - dif_z).astype(bf)
+    want_acc = jnp.einsum("npk,nkc->npc", w, jnp.asarray(attrs).astype(bf),
+                          preferred_element_type=jnp.float32)
+    want_depth = jnp.einsum("npk,npk->np", w, depth_k, preferred_element_type=jnp.float32)
+    acc, corr, tT = tcomp.composite_block_plain(
+        *(t(a) for a in (xy, conic, opac, valid, attrs, e, pixf)), compute_dtype=torch.bfloat16)
+    assert acc.dtype == corr.dtype == tT.dtype == torch.float32
+    assert_close_share(acc[..., :-1], want_acc[..., :-1], 2e-2, 0.02, msg="bf16 accum")
+    assert_close_share(acc[..., -1] - corr, want_depth, 2e-2, 0.02, msg="bf16 depth")
+    assert_close_share(tT, T.astype(jnp.float32), 2e-2, 0.02, msg="bf16 T")
 
 
 def test_port_imports_neither_jax_nor_soar_tpu():

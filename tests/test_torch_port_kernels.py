@@ -35,7 +35,9 @@ def test_kernel_library_named_by_source_hash(monkeypatch):
         assert path.parent == kernels.BUILD_DIR and path.name.startswith(f"lib{name}-")
         assert path == kernels.library_path(name)
         assert (kernels.BUILD_DIR.parent / src).exists()
-        assert len(argtypes) == 13
+        # forward: 5 pointers, 4 ints, 3 floats, the stream; backward: one
+        # pointer more (three cotangents in, gfeat out).
+        assert len(argtypes) == {"composite_fwd": 13, "composite_bwd": 14}[name]
         # Other nvcc flags name another library: a stale build is not reused.
         monkeypatch.setattr(kernels, "NVCC_FLAGS", [*kernels.NVCC_FLAGS, "-lineinfo"])
         assert kernels.library_path(name) != path
@@ -59,6 +61,68 @@ def test_composite_kernel_matches_plain_on_cuda(saturate, C):
     # 1e-5, with 1% of pixels allowed a T-cutoff flip.
     for g, w, name in zip(got, want, ("accum", "corr", "T")):
         assert_close_share(g, w, 1e-5, 0.01, msg=name)
-    # Forward only: a CUDA input that requires grad is refused.
-    with pytest.raises(NotImplementedError):
-        tbc.composite_block(cuda[0].clone().requires_grad_(), *cuda[1:])
+    # A CUDA input that requires grad: autograd reaches the backward kernel,
+    # once, and its gradient is the plain backward's.
+    xy = cuda[0].clone().requires_grad_()
+    before_fwd, before_bwd = tbc.composite_block.launches, tbc.composite_block.bwd_launches
+    accum, corr, T = tbc.composite_block(xy, *cuda[1:])
+    (accum.sum() + corr.sum() + T.sum()).backward()
+    torch.cuda.synchronize()
+    assert tbc.composite_block.launches == before_fwd + 1
+    assert tbc.composite_block.bwd_launches == before_bwd + 1
+    ones = (torch.ones_like(accum.transpose(1, 2)), torch.ones_like(corr), torch.ones_like(T))
+    want_xy = tcomp.composite_block_bwd_plain(*cuda, *ones)[..., 0:2]
+    scale = float(want_xy.abs().max())
+    assert_close_share(xy.grad, want_xy, 1e-4 * scale, 0.01, msg="d/dxy")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("saturate", [False, True])
+@pytest.mark.parametrize("C", [7, 3])
+def test_composite_bwd_kernel_matches_plain_on_cuda(saturate, C):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    scene = [t(a).cuda() for a in make_scene(NT=64, K=64, C=C, seed=8, saturate=saturate)]
+    g = torch.Generator().manual_seed(9)
+    cots = [torch.randn(s, generator=g).cuda() for s in ((64, C, 256), (64, 256), (64, 256))]
+    before = tbc.composite_block.bwd_launches
+    got = tbc.composite_block_bwd(*scene, *cots)
+    torch.cuda.synchronize()
+    assert tbc.composite_block.bwd_launches == before + 1
+    want = tcomp.composite_block_bwd_plain(*scene, *cots)
+    assert bool((got[..., 6] == 0).all())
+    # Per column, relative to the column's largest magnitude: the kernel's
+    # S_k = G - P_k cancels to ~1 ulp of G over 1 - alpha >= 0.01.  At most
+    # 0.1% of the entries beyond 1e-4 (a pixel whose stop slot flips moves
+    # one slot's sum), and none beyond 1e-2, so no wrong slot hides there.
+    for col in range(9 + C):
+        scale = float(want[..., col].abs().max())
+        assert_close_share(got[..., col], want[..., col], 1e-4 * scale, 1e-3, msg=f"col {col}")
+        assert_close_share(got[..., col], want[..., col], 1e-2 * scale, 0.0, msg=f"col {col}")
+
+
+def test_plain_backward_matches_finite_differences():
+    """The plain backward (the kernel's oracle) against central finite
+    differences in float64, at a tiny size where no pixel sits at a mask
+    threshold within the step."""
+    xy, conic, opac, valid, attrs, e, pixf = (
+        t(a) for a in make_scene(NT=2, K=6, C=2, seed=4))
+    pixf = pixf[:, ::37]  # 7 pixels a tile
+    f64 = [a.double() for a in (xy, conic, opac, attrs, e)]
+
+    def fn(xy_, conic_, opac_, attrs_, e_):
+        return tcomp.composite_block_plain(xy_, conic_, opac_, valid, attrs_, e_,
+                                           pixf.double())
+
+    assert torch.autograd.gradcheck(fn, [a.requires_grad_() for a in f64], eps=1e-6,
+                                    atol=1e-7, rtol=1e-5)
+    g = torch.Generator().manual_seed(1)
+    outs = fn(*f64)
+    cots = [torch.randn(o.shape, generator=g, dtype=torch.float64) for o in outs]
+    grads = torch.autograd.grad(outs, f64, cots)
+    packed = tcomp.composite_block_bwd_plain(
+        *(a.detach() for a in f64[:3]), valid, f64[3].detach(), f64[4].detach(),
+        pixf.double(), cots[0].transpose(1, 2), cots[1], cots[2])
+    want = torch.cat([grads[0], grads[1], grads[2][..., None],
+                      torch.zeros_like(grads[2])[..., None], grads[4], grads[3]], -1)
+    assert torch.equal(packed, want)

@@ -10,6 +10,12 @@ import numpy as np
 import torch
 
 
+# The suite runs in several worker processes on one host; torch's default of
+# one intra-op thread per core then oversubscribes the cores, which slows
+# these small-shape tests several-fold.
+torch.set_num_threads(min(2, torch.get_num_threads()))
+
+
 def _warm_up_vectorized_math():
     """Some CPU builds of torch (seen with 2.13.0+cpu) return the first call
     of a vectorized transcendental op in a process (exp, log, tanh, ...) with
@@ -112,3 +118,40 @@ def make_scene(NT=6, K=24, tile=16, C=7, seed=0, saturate=False):
         [origins[:, None, 0] + lx[None], origins[:, None, 1] + ly[None]], -1
     ).astype(np.float32)
     return (xy.astype(np.float32), conic, opac, valid, attrs, e, pixf)
+
+
+def small_avatar(seed=0, num_frames=4, use_field_cfg=None):
+    """soar_tpu's small procedural avatar (4 joints, 1 subdivision, a tiny
+    hash field; no distillation), built in JAX and carried across to the
+    port on the CPU.  Returns ``(jparams, jmodel, tparams, tmodel)``."""
+    import jax.numpy as jnp
+
+    from soar_tpu.avatar import init_avatar
+    from soar_tpu.body import make_test_body
+    from soar_tpu.field.attribute_field import AttributeFieldConfig
+    from soar_tpu.field.hashgrid import HashGridConfig
+
+    rng = np.random.RandomState(seed)
+    body = make_test_body(num_joints=4, segments_per_bone=3, ring=8)
+    F = num_frames
+    sp = {
+        "betas": np.zeros((1, body.num_betas), np.float32),
+        "body_pose": (rng.randn(F, (body.num_joints - 1) * 3) * 0.08).astype(np.float32),
+        "global_orient": (rng.randn(F, 3) * 0.05).astype(np.float32),
+        "transl": np.tile([[0.0, 0.2, -1.8]], (F, 1)).astype(np.float32),
+    }
+    field_cfg = use_field_cfg or AttributeFieldConfig(
+        grid=HashGridConfig(num_levels=4, min_res=4, max_res=64, log2_hashmap_size=12),
+        hidden_dim=16,
+    )
+    jparams, jmodel = init_avatar(body, {k: jnp.asarray(v) for k, v in sp.items()},
+                                  num_subdiv=1, field_cfg=field_cfg, seed=seed,
+                                  distill_steps=0)
+    return (jparams, jmodel) + port_copy(jparams, jmodel)
+
+
+def port_copy(jparams, jmodel):
+    """A fresh CPU copy of a soar_tpu avatar in the port: (params, model)."""
+    from soar_tpu_torch.io.from_jax import avatar_from_numpy
+
+    return avatar_from_numpy(*avatar_to_numpy(jparams, jmodel), device="cpu")
