@@ -8,14 +8,30 @@
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes its paths give it, and times both (CUDA events): the forward
    composite at the turntable's K=96 (C=7 main pass, C=3 occ pass), the
-   backward composite at the training step's K=64 (NT=1024 and 256).
+   backward composite at the training step's K=64 (NT=1024 and 256); the
+   count-bounded tile composite at K=96 with per-tile counts over 0..K is
+   checked with its path (5), after the views are timed.
 4. Drives the port's turntable (``soar_tpu_torch.cli.render_rot.
    run_turntable``) at full width — the 125,664-surfel procedural scene,
    16-level 2^18 hash field, 512x512 renders — with every launch counter
    set to 0 just before and read just after, and checks the outputs.
    Then times one view, and holds it against the same view with the plain
    composite, at bench.py's camera and at one that frames the whole body.
-5. Drives the port's training step (``soar_tpu_torch.train.trainer.
+5. Drives the tile-list path of the count-bounded composite
+   (``render.tiled.gather_tile_lists`` -> ``render.tiles_composite.
+   composite_tiles``) on the real tile lists of both views, its launch
+   counter set to 0 just before and read just after, and holds the result
+   against its plain version and against the forward composite's
+   accumulations on the same lists.
+6. Runs the truncation probe: the tiled render (kernel composite, K=64 and
+   K=96) against the exact oracle (``render.oracle.rasterize_oracle_at``) at
+   4,096 seeded pixels of both views; prints PSNR inside the oracle's
+   silhouette, which is reference behaviour and not gated.
+7. Runs the export's pipeline (``io.meshing.extract_mesh``) at full width:
+   the 125,664 Gaussians of the scene with the field's scales and
+   opacities; only the grid resolution is cut (64, ``--export-resolution
+   128`` for the CLI's default).
+8. Drives the port's training step (``soar_tpu_torch.train.trainer.
    make_train_step``) at the full width of bench_trainstep.py's guidance-
    free production step: the same scene and its 8 random GT frames, 4 gen
    views at 256x256, the GT pass and the normal front/back pass at
@@ -24,9 +40,11 @@
    kernel launches a step.  Checks the losses, the parameter updates and
    that no op of a step computes on the CPU, profiles one step, and holds
    the kernel step's losses and gradients against the plain composite's.
-6. Runs the training CLI (``--synthetic --stage both --steps 3``) and the
-   turntable CLI on its checkpoint.
-7. Prints the wall seconds of each phase (``[time]``), a
+9. Runs the training CLI (``--synthetic --stage both --steps 3``), the
+   turntable CLI on its checkpoint, and the mesh-export CLI on it (default
+   flags with and without ``--field-attrs``), reads the OBJs back, and
+   checks that no op of the density field computes on the CPU.
+10. Prints the wall seconds of each phase (``[time]``), a
    ``{"kernels": [...]}`` line, then as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -37,6 +55,7 @@ it.  A JSON report also goes to ``chiprun_out/chip_smoke.json``.
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import subprocess
@@ -64,6 +83,25 @@ BWD_CAP = 1e-2
 # evaluated slot costs offsets, power, exp, clamp, the skip tests and the
 # T update (19); a blended slot adds w = a*T, C channel FMAs and corr (2C+6).
 OPS_PER_EVAL = 19
+# A blended slot of the tile composite: w = a*T, six colour and normal FMAs,
+# the plane-corrected depth (dx*e0 + dy*e1 and the subtraction: 4) and its
+# FMA.  The plane's coefficients e are formed once per slot that is read (two
+# products and a sum each), as the plain version and composite_fwd's caller
+# form them; the kernel's own per-pixel du0/du1 form costs more and is not
+# what the function needs.
+TILES_OPS_PER_BLEND = 19
+TILES_OPS_PER_SLOT = 6
+# The largest |kernel - plain| allowed on any pixel of the tile composite: a
+# pixel whose stop slot flips gains or loses one slot's weight a*T with T
+# near 1e-4, far below this; a wrong slot or channel is O(1).
+TILES_CAP = 1e-2
+# Bytes of one slot of the tile lists: 23 floats (xy 2, conic 3, opacity,
+# colour 3, normal 3, depth, jinv 10) and the valid byte.
+TILES_BYTES_PER_SLOT = 93
+PROBE_PIXELS = 4096
+# Grid resolution of the full-width export; the export CLI's default is 128,
+# cut here for the script's time (8x fewer grid points).
+EXPORT_RESOLUTION = 64
 # The backward walks every evaluated slot twice (2 * 19); a blended slot
 # costs gw and the running sum in pass 1 (2C+7), and in pass 2 gw again,
 # the prefix, S_k, dL/dalpha, the clamp and exp chain and the 8 + C
@@ -177,10 +215,10 @@ def composite_scene(C, seed, NT=SLICE_NT, K=SLICE_K):
                  for a in arrs)
 
 
-def walk_counts(args):
-    """The pixel-slot pairs this data makes the composite walk: evaluated
-    (up to and including a pixel's early-stop slot, valid slots only),
-    blended (weight > 0), and the (tile, slot) pairs some pixel blended."""
+def walk_masks(args):
+    """[NT, P, K] masks of the pixel-slot pairs this data makes the
+    composite walk: evaluated (up to and including a pixel's early-stop
+    slot, valid slots only) and blended (weight > 0)."""
     from soar_tpu_torch.render.composite import composite_weights, splat_alpha
 
     xy, conic, opac, valid, attrs, e, pixf = args
@@ -194,8 +232,14 @@ def walk_counts(args):
     viol = (t_excl * one_minus) < 1e-4
     stop = torch.where(viol.any(-1), viol.float().argmax(-1), torch.full_like(viol[..., 0], K - 1, dtype=torch.long))
     walked = torch.arange(K, device=xy.device)[None, None] <= stop[..., None]
-    return (int((walked & valid[:, None]).sum()), int((w > 0).sum()),
-            int((w > 0).any(1).sum()))
+    return walked & valid[:, None], w > 0
+
+
+def walk_counts(args):
+    """The pairs of :func:`walk_masks` counted: evaluated, blended, and the
+    (tile, slot) pairs some pixel blended."""
+    evaluated, blended = walk_masks(args)
+    return int(evaluated.sum()), int(blended.sum()), int(blended.any(1).sum())
 
 
 def _bound(ops, nbytes):
@@ -303,6 +347,142 @@ def check_composite_bwd_kernel(NT, C, seed):
     return out
 
 
+def tiles_scene(seed, NT=SLICE_NT, K=SLICE_K):
+    """Synthetic gathered tile lists at the render's shapes, as
+    ``composite_tiles`` takes them: the slots of ``composite_scene`` (half
+    the tiles saturating, ~15% invalid slots) with colours, normals, sorted
+    depths and a local homography per slot, and per-tile counts drawn over
+    0..K."""
+    xy, conic, opac, valid, attrs, e, pixf = composite_scene(7, seed, NT=NT, K=K)
+    rng = np.random.RandomState(seed + 1000)
+    depths = np.sort(rng.uniform(1, 4, (NT, K)), axis=-1).astype(np.float32)
+    jinv = rng.uniform(-0.5, 0.5, (NT, K, 10)).astype(np.float32)
+    slot_valid = rng.rand(NT, K) > 0.15
+    counts = rng.randint(0, K + 1, NT).astype(np.int32)
+    origins = pixf[:, 0, :].to(torch.int32)
+    host = (depths, jinv, slot_valid, counts)
+    return (xy, conic, opac, attrs[..., 0:3].contiguous(), attrs[..., 3:6].contiguous(),
+            *(torch.from_numpy(a).cuda() for a in host), origins)
+
+
+def as_block_args(lists, tile=16):
+    """The tile lists as ``composite_block``'s arguments: the slot mask with
+    the counts folded in, colour | normal | depth as the linear channels and
+    the plane correction's coefficients ``e``."""
+    from soar_tpu_torch.render.composite import depth_plane_coeffs, tile_pixel_centres
+
+    xy, conic, opac, colors, normals, depths, jinv, slot_valid, counts, origins = lists
+    K = xy.shape[1]
+    valid = slot_valid & (torch.arange(K, device=xy.device)[None] < counts[:, None])
+    attrs = torch.cat([colors, normals, depths[..., None]], -1)
+    return (xy, conic, opac, valid, attrs, depth_plane_coeffs(jinv),
+            tile_pixel_centres(origins, tile))
+
+
+def tiles_bound_ms(lists):
+    """Least time for this call of the tile composite.  Operations: the
+    pairs this data makes any implementation evaluate (per pixel, the valid
+    slots below min(count, K) up to and including its stop slot) and blend.
+    Bytes: each tile's slots up to the last one any of its pixels evaluates
+    (no later slot has to be read), its count and origin, and the four
+    outputs."""
+    block = as_block_args(lists)
+    NT, K = block[3].shape
+    P = block[6].shape[1]
+    evaluated, blended = walk_masks(block)
+    evals, blends = int(evaluated.sum()), int(blended.sum())
+    slot_seen = evaluated.any(1)  # [NT, K]
+    k_ar = torch.arange(1, K + 1, device=slot_seen.device)
+    slots_read = int((slot_seen * k_ar).amax(1).sum())
+    out = _bound(evals * OPS_PER_EVAL + blends * TILES_OPS_PER_BLEND
+                 + slots_read * TILES_OPS_PER_SLOT,
+                 slots_read * TILES_BYTES_PER_SLOT + NT * 12 + 4 * NT * P * 8)
+    out.update(pairs_evaluated=evals, pairs_blended=blends, slots_read=slots_read,
+               slots_below_count=int(torch.clamp(lists[8], 0, K).sum()),
+               pairs_until_tile_exit=slots_read * P)
+    return out
+
+
+def compare_tiles(label, got, want, names=("color", "normal", "depth", "T")):
+    """max |got - want| per output, held to TILES_CAP, and the share of
+    pixels beyond KERNEL_TOL, gated at KERNEL_FLIP_SHARE (the forward
+    composite's gate).  The share is taken over the pixels some splat
+    touches (T < 1 in either result): a view whose body fills a few tiles
+    leaves every other pixel at zeros and T = 1 whatever the kernel does.
+    Returns the errors, the share and the number of touched pixels."""
+    touched = (got[3] < 1) | (want[3] < 1)  # [NT, P]
+    n_touched = int(touched.sum())
+    errs, share = {}, 0.0
+    for g, w, name in zip(got, want, names):
+        check(g.shape == w.shape, f"{label}: {name} shape {tuple(g.shape)}")
+        check(bool(torch.isfinite(g).all()), f"{label}: {name} not finite")
+        diff = (g - w).abs()
+        errs[name] = float(diff.max())
+        per_pixel = diff.reshape(diff.shape[0], diff.shape[1], -1).amax(-1)
+        check(bool((per_pixel[~touched] == 0).all()),
+              f"{label}: {name} differs on a pixel no splat touches")
+        if n_touched:
+            share = max(share, float((per_pixel[touched] > KERNEL_TOL).float().mean()))
+    check(share <= KERNEL_FLIP_SHARE,
+          f"{label}: {share:.4%} of the {n_touched} touched pixels differ by > {KERNEL_TOL}")
+    check(max(errs.values()) <= TILES_CAP,
+          f"{label}: largest difference {max(errs.values()):.3g} > {TILES_CAP}")
+    return errs, share, n_touched
+
+
+def check_composite_tiles(label, lists, vs_fwd=False):
+    """composite_tiles against composite_tiles_plain on the card and, with
+    ``vs_fwd``, against composite_fwd's accumulations on the same lists;
+    times the kernel and the plain version and computes the bound."""
+    from soar_tpu_torch.render.block_composite import composite_block
+    from soar_tpu_torch.render.composite import composite_tiles_plain
+    from soar_tpu_torch.render.tiles_composite import composite_tiles
+
+    tag = f"[composite_tiles {label}]"
+    got = composite_tiles(*lists)
+    torch.cuda.synchronize()
+    want = composite_tiles_plain(*lists)
+    errs, share, touched = compare_tiles(f"{label}: kernel vs plain", got, want)
+    empty = torch.clamp(lists[8], 0) == 0
+    check(bool((got[3][empty] == 1).all()) and bool((got[0][empty] == 0).all()),
+          f"{label}: a tile with count 0 is not empty")
+    out = {"max_abs_err": max(errs.values()), "err": errs, "share_beyond_tol": share,
+           "touched_pixels": touched, "NT": int(lists[0].shape[0]), "K": int(lists[0].shape[1]),
+           "tiles_with_count_0": int(empty.sum()),
+           "tiles_with_count_above_K": int((lists[8] > lists[0].shape[1]).sum())}
+    if vs_fwd:
+        with torch.no_grad():
+            accum, corr, T = composite_block(*as_block_args(lists))
+        fwd = (accum[..., 0:3], accum[..., 3:6], accum[..., 6] - corr, T)
+        errs_f, share_f, _ = compare_tiles(f"{label}: kernel vs composite_fwd", got, fwd)
+        out.update(vs_fwd_err=errs_f, vs_fwd_share_beyond_tol=share_f)
+        print(f"{tag} max|composite_tiles - composite_fwd accumulations| "
+              + ", ".join(f"{k} {v:.3g}" for k, v in errs_f.items())
+              + f"; of {touched} touched pixels beyond {KERNEL_TOL}: {share_f:.4%}")
+    out["ms"] = cuda_ms(lambda: composite_tiles(*lists), 200)
+    out["plain_ms"] = cuda_ms(lambda: composite_tiles_plain(*lists), 10)
+    # The kernel alone on the device timeline; ``ms`` above is the wrapper's
+    # call, with its host work and the copies that make sliced inputs
+    # contiguous.
+    prof = profile_view(lambda: [composite_tiles(*lists) for _ in range(10)])
+    out["device_ms"] = prof["composite_tiles_ms"] / 10
+    out["wrapper_device_ops"] = prof["device_kernels"] // 10
+    check(out["device_ms"] > 0, f"{label}: the profiler saw no composite_tiles kernel")
+    out.update(tiles_bound_ms(lists))
+    print(f"{tag} NT={out['NT']} K={out['K']}, {out['tiles_with_count_0']} tiles with count 0, "
+          f"{out['tiles_with_count_above_K']} above K; max|kernel-plain| "
+          + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
+          + f"; of {touched} touched pixels beyond {KERNEL_TOL}: {share:.4%} (largest allowed "
+          f"{TILES_CAP}); kernel {out['ms']:.4f} ms per call of "
+          f"the wrapper ({out['wrapper_device_ops']} device ops, the kernel alone "
+          f"{out['device_ms']:.4f} ms by the profiler), plain {out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
+          f"{out['pairs_evaluated']} pairs evaluated, {out['pairs_blended']} blended, "
+          f"{out['slots_read']} of {out['slots_below_count']} slots below the counts read, "
+          f"{out['pairs_until_tile_exit']} pairs until the tiles' exits); library call: none "
+          f"(no single PyTorch op computes it)")
+    return out
+
+
 # -------------------------------------------------------------- the slice
 
 
@@ -375,6 +555,7 @@ def profile_view(render):
         "device_kernels": sum(r[1] for r in rows),
         "composite_fwd_ms": sum(r[0] for r in rows if "composite_fwd" in r[2]),
         "composite_bwd_ms": sum(r[0] for r in rows if "composite_bwd" in r[2]),
+        "composite_tiles_ms": sum(r[0] for r in rows if "composite_tiles" in r[2]),
         "top": [{"ms": r[0], "calls": r[1], "name": r[2][:90]} for r in rows[:15]],
     }
 
@@ -434,9 +615,19 @@ def layer_ms(params, model, cam, bg, ov):
     }
 
 
-def run_slice(ds, params, model, device):
-    from soar_tpu_torch.cli.render_rot import gt_camera, run_turntable
+def slice_views(ds, params, model, device):
+    """The two cameras every per-view check uses, and the pose override
+    they render with: bench.py's camera and one that frames the body."""
+    from soar_tpu_torch.cli.render_rot import gt_camera
     from soar_tpu_torch.core.transforms import rotmat_to_rotvec
+
+    ov = {"global_orient": rotmat_to_rotvec(torch.eye(3, device=device))}
+    return {"bench": gt_camera(ds, 0, device),
+            "framed": framed_camera(params, model, ov, device)}, ov
+
+
+def run_slice(ds, params, model, views, ov, device):
+    from soar_tpu_torch.cli.render_rot import run_turntable
     from soar_tpu_torch.render import block_composite
 
     N = params.xyz.shape[0]
@@ -475,9 +666,6 @@ def run_slice(ds, params, model, device):
 
     # ---- per-view time and kernel vs plain, at bench.py's camera and at
     # one that frames the whole body (not counted)
-    ov = {"global_orient": rotmat_to_rotvec(torch.eye(3, device=device))}
-    views = {"bench": gt_camera(ds, 0, device),
-             "framed": framed_camera(params, model, ov, device)}
     reports = {label: view_report(label, params, model, cam, ov)
                for label, cam in views.items()}
     return {
@@ -567,6 +755,122 @@ def view_report(label, params, model, cam, ov):
         "cpu_transfers_per_view": cpu_moves, "aten_ops_per_view": n_ops,
         "host_syncs_per_view": n_syncs, "peak_memory_gib": peak_gib, "layer_ms": layers,
     }
+
+
+def run_tile_lists(params, model, views, ov):
+    """The count-bounded tile composite on the real tile lists of the
+    views (125,664 surfels, 512x512, K=96): gathered as the rasterizer
+    gathers them, composited by the kernel with its launch counter set to 0
+    just before and read just after, assembled to an image; then, not
+    counted, held against the plain version and against composite_fwd's
+    accumulations on the same lists, and timed."""
+    import dataclasses
+
+    from soar_tpu_torch.avatar.renderer import RenderSettings, posed_gaussians
+    from soar_tpu_torch.render import tiles_composite
+    from soar_tpu_torch.render.composite import finalize_accum
+    from soar_tpu_torch.render.preprocess import preprocess
+    from soar_tpu_torch.render.tiled import gather_tile_lists
+    from soar_tpu_torch.render.tilegrid import untile
+
+    size = (512, 512)
+    st = RenderSettings()
+    cfg = dataclasses.replace(st.raster, render_front=False, sort_descending=False)
+    bg = torch.ones(3, device="cuda")
+    all_lists, images = {}, {}
+    tiles_composite.composite_tiles.launches = 0
+    with torch.no_grad():
+        for label, cam in views.items():
+            g, _ = posed_gaussians(params, model, 0, st, smpl_override=ov)
+            lists, (ntx, nty), overflow = gather_tile_lists(preprocess(g, cam, size, cfg), size, cfg)
+            accum = tiles_composite.composite_tiles(*lists, tile=cfg.tile)
+            color, normal, depth, opac, _ = finalize_accum(*accum, bg, cfg.normalize_depth)
+            images[label] = {"render": untile(color, 3, ntx, nty, cfg.tile, *size),
+                             "mask": untile(opac[..., None], 1, ntx, nty, cfg.tile, *size)[..., 0],
+                             "overflow": [int(x) for x in overflow.cpu()]}
+            all_lists[label] = lists
+    torch.cuda.synchronize()
+    launches = tiles_composite.composite_tiles.launches
+    check(launches == len(views), f"composite_tiles launched {launches} times, want {len(views)}")
+
+    reports = {}
+    with torch.no_grad():
+        for label, lists in all_lists.items():
+            img = images[label]
+            check(bool(torch.isfinite(img["render"]).all()), f"tile lists {label}: image not finite")
+            cover_px = int((img["mask"] > 0.5).sum())
+            check(cover_px >= 100, f"tile lists {label}: mask covers only {cover_px} pixels")
+            rep = check_composite_tiles(f"{label} view", lists, vs_fwd=True)
+            rep.update(mask_pixels=cover_px, overflow=img["overflow"])
+            reports[label] = rep
+    return {"launches": launches, "views": reports}
+
+
+def run_oracle_probe(params, model, views, ov):
+    """The truncation probe of bench_trainstep.py on the card: the tiled
+    render (kernel composite) against the exact oracle at PROBE_PIXELS
+    seeded pixels, colour and normal PSNR inside the oracle's silhouette.
+    The PSNR is reference behaviour (the bounded-K renderer is a measured
+    approximation of the oracle) and is not gated; the probe must run on
+    the card, cover the body in the framed view and be finite."""
+    from soar_tpu_torch.avatar.renderer import RenderSettings, posed_gaussians
+    from soar_tpu_torch.render.oracle import rasterize_oracle_at
+    from soar_tpu_torch.render.tiled import rasterize
+    from soar_tpu_torch.render.types import RasterConfig
+
+    size = (512, 512)
+    rng = np.random.RandomState(0)
+    xs = torch.from_numpy(rng.randint(0, size[1], PROBE_PIXELS)).cuda()
+    ys = torch.from_numpy(rng.randint(0, size[0], PROBE_PIXELS)).cuda()
+    pix = torch.stack([xs, ys], -1).float()
+    bg = torch.zeros(3, device="cuda")
+    rasters = {"K=64": RasterConfig(max_per_tile=64, dup_side=5), "K=96": RasterConfig()}
+
+    def psnr(a, b, m):
+        """None where the silhouette holds no probe pixel; inf when equal."""
+        if not bool(m.any()):
+            return None
+        mse = float(torch.mean((a[m] - b[m]) ** 2))
+        return float("inf") if mse == 0 else 10.0 * float(np.log10(1.0 / mse))
+
+    reports = {}
+    with torch.no_grad():
+        for label, cam in views.items():
+            g, _ = posed_gaussians(params, model, 0, RenderSettings(), smpl_override=ov)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            o_color, o_normal, _, o_opac, _ = rasterize_oracle_at(g, cam, size, bg, pix, rasters["K=96"])
+            torch.cuda.synchronize()
+            oracle_s = time.perf_counter() - t0
+            peak_gib = torch.cuda.max_memory_allocated() / 2**30
+            check(o_color.is_cuda, f"probe {label}: the oracle's output is_cuda is False")
+            check(bool(torch.isfinite(o_color).all()) and bool(torch.isfinite(o_normal).all()),
+                  f"probe {label}: oracle not finite")
+            m = o_opac > 1e-3  # inside the oracle's silhouette
+            rep = {"probe_pixels": int(m.sum()), "oracle_s": oracle_s, "oracle_peak_gib": peak_gib}
+            for name, raster in rasters.items():
+                out = rasterize(g, cam, size, bg, raster)
+                t_color, t_normal = out.color[ys, xs], out.normal[ys, xs]
+                check(bool(torch.isfinite(t_color).all()), f"probe {label} {name}: tiled not finite")
+                rep[name] = {"color_psnr": psnr(t_color, o_color, m),
+                             "normal_psnr": psnr((t_normal + 1) / 2, (o_normal + 1) / 2, m),
+                             "overflow": [int(x) for x in out.overflow.cpu()]}
+            rep["probe_s"] = time.perf_counter() - t0
+            reports[label] = rep
+            print(f"[oracle {label}] {PROBE_PIXELS} seeded pixels, {rep['probe_pixels']} inside the "
+                  f"oracle's silhouette; oracle {oracle_s:.3f} s (peak {peak_gib:.3f} GiB), probe "
+                  f"{rep['probe_s']:.3f} s; tiled vs oracle PSNR dB (colour, normal) and overflow "
+                  f"[dropped, capped]: " + "; ".join(
+                      f"{k} {rep[k]['color_psnr']}, {rep[k]['normal_psnr']}, {rep[k]['overflow']}"
+                      for k in rasters))
+    check(reports["framed"]["probe_pixels"] >= 20,
+          f"probe: only {reports['framed']['probe_pixels']} probe pixels on the framed body")
+    for name in rasters:
+        v = reports["framed"][name]
+        check(v["color_psnr"] is not None and not np.isnan(v["color_psnr"])
+              and not np.isnan(v["normal_psnr"]), f"probe framed {name}: PSNR {v}")
+    return reports
 
 
 # ----------------------------------------------------------- the training
@@ -784,9 +1088,111 @@ def run_training(ds, params, model, device):
     }
 
 
+def read_obj_counts(path):
+    """(vertices, faces) of an OBJ, through the port's loader."""
+    from soar_tpu_torch.io.objmesh import load_obj_mesh
+
+    if os.path.getsize(path) == 0:
+        return 0, 0
+    verts, faces = load_obj_mesh(path)
+    check(len(faces) == 0 or int(faces.max()) < len(verts), f"{path}: a face indexes no vertex")
+    check(bool(np.isfinite(verts).all()), f"{path}: a vertex is not finite")
+    return len(verts), len(faces)
+
+
+def run_export_full(params, model, resolution):
+    """The export's device part at full width: ``io.meshing.extract_mesh``,
+    the function the CLI calls, on the 125,664-surfel bench scene with the
+    attribute field's scales and opacities (what ``--field-attrs`` passes).
+    At this N the density field's point chunk is capped from N, which the
+    CLI's 400-surfel fixture never reaches.  Only the grid resolution is cut
+    (``resolution`` against the CLI's default of 128); the field's cost is
+    linear in the number of grid points.  Every aten op of one more call at
+    resolution 32 (the same chunk size, fewer chunks) is recorded."""
+    from soar_tpu_torch.avatar.renderer import query_attributes
+    from soar_tpu_torch.io import meshing
+
+    N = params.xyz.shape[0]
+    step = meshing.points_per_chunk(N)
+    check(step < 65536, f"export full: the chunk cap does not bite at N={N} (step {step})")
+    with torch.no_grad():
+        attrs = query_attributes(params, model)
+    kw = dict(scales=attrs["scales"], opacities=attrs["opacities"][:, 0])
+    timings = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    verts, faces = meshing.extract_mesh(params, resolution=resolution, timings=timings, **kw)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(len(verts) > 100 and len(faces) > 100,
+          f"export full: mesh of {len(verts)} vertices, {len(faces)} faces")
+    check(bool(np.isfinite(verts).all()) and int(faces.max()) < len(verts),
+          "export full: a vertex is not finite or a face indexes no vertex")
+    cpu_compute, cpu_moves, n_ops, n_syncs = host_ops(
+        lambda: meshing.extract_mesh(params, resolution=32, **kw))
+    check(not cpu_compute, f"export full: the density field computed on the CPU: {cpu_compute}")
+    chunks = -(-resolution ** 3 // step)
+    print(f"[export full] extract_mesh, {N} Gaussians (field scales and opacities), resolution "
+          f"{resolution} (CLI default 128): {step} grid points per chunk, {chunks} chunks; "
+          f"density field {timings['density_field_s']:.3f} s, host part "
+          f"{timings['host_s']:.3f} s, peak memory {peak_gib:.3f} GiB; {len(verts)} vertices, "
+          f"{len(faces)} faces; at resolution 32: {n_ops} aten ops, {n_syncs} host syncs, none "
+          f"computed on the CPU; ops with a CPU result (transfers) {cpu_moves}")
+    return {"gaussians": N, "resolution": resolution, "points_per_chunk": step,
+            "chunks": chunks, "verts": len(verts), "faces": len(faces),
+            "peak_memory_gib": peak_gib, "aten_ops_at_resolution_32": n_ops, **timings}
+
+
+def run_export(ckpt, out_dir, device):
+    """cli.export_mesh --synthetic on the trained checkpoint at its default
+    flags (resolution 128, level 0.8), from the explicit logits and with
+    --field-attrs.  The explicit opacity logits stay at their initial 0.1
+    in the field-driven training (as in the JAX package, whose CLI documents
+    it), so their density may peak below the default level and leave that
+    mesh empty: it is printed and must read back, the --field-attrs mesh
+    must not be empty.  Then the density field alone, with every aten op
+    recorded.  This is the CLI's round trip on its 400-surfel fixture; the
+    export's time at full width is run_export_full's."""
+    from soar_tpu_torch.avatar import state as S
+    from soar_tpu_torch.cli import export_mesh
+    from soar_tpu_torch.cli.common import synthetic_setup
+    from soar_tpu_torch.io.checkpoint import load_avatar
+    from soar_tpu_torch.io.meshing import extract_density_field
+
+    runs = {"explicit": [], "field_attrs": ["--field-attrs"]}
+    reports = {}
+    for name, flags in runs.items():
+        path = os.path.join(out_dir, f"{name}.obj")
+        t0 = time.perf_counter()
+        stats = export_mesh.main(["--synthetic", "--ckpt", ckpt, "--out", path,
+                                  "--device", device, *flags])
+        stats["cli_s"] = time.perf_counter() - t0
+        check(read_obj_counts(path) == (stats["verts"], stats["faces"]),
+              f"export {name}: the OBJ does not read back as written")
+        reports[name] = stats
+    check(reports["field_attrs"]["verts"] > 100 and reports["field_attrs"]["faces"] > 100,
+          f"export field_attrs: mesh {reports['field_attrs']}")
+
+    _, params, _ = synthetic_setup(distill_steps=0, device=device)
+    params, _ = load_avatar(ckpt, params)
+    with torch.no_grad():
+        field_args = (params.xyz, S.get_scaling(params).expand(-1, 3), S.get_rotation(params),
+                      S.get_opacity(params)[:, 0])
+        cpu_compute, cpu_moves, n_ops, n_syncs = host_ops(
+            lambda: extract_density_field(*field_args, resolution=128, device=device))
+    check(not cpu_compute, f"export: the density field computed on the CPU: {cpu_compute}")
+    for name, r in reports.items():
+        print(f"[export {name}] {r['verts']} vertices, {r['faces']} faces; density field "
+              f"{r['density_field_s']:.3f} s, host part {r['host_s']:.3f} s, CLI {r['cli_s']:.3f} s")
+    print(f"[export] density field at resolution 128, {params.xyz.shape[0]} Gaussians: {n_ops} "
+          f"aten ops, {n_syncs} host syncs, none computed on the CPU; ops with a CPU result "
+          f"(transfers) {cpu_moves}")
+    reports["density_field_aten_ops"] = n_ops
+    return reports
+
+
 def run_cli(device):
-    """cli.train --synthetic --stage both --steps 3, then cli.render_rot on
-    its stage-1 checkpoint, in a temporary directory."""
+    """cli.train --synthetic --stage both --steps 3, then cli.render_rot and
+    cli.export_mesh on its stage-1 checkpoint, in a temporary directory."""
     from soar_tpu_torch.cli import render_rot, train
 
     with tempfile.TemporaryDirectory() as d:
@@ -805,14 +1211,21 @@ def run_cli(device):
               f"cli: metrics rows {rows}")
         pngs = sorted(f for f in os.listdir(rot) if f.endswith(".png"))
         check(len(pngs) == 8, f"cli: render_rot wrote {pngs}")
-    total_s = time.perf_counter() - t0
-    print(f"[cli] train --synthetic --stage both --steps 3: {train_s:.2f} s; render_rot --ckpt "
-          f"stage1 --num-views 2: {total_s - train_s:.2f} s; checkpoints, 6 metrics rows and "
-          f"{len(pngs)} pngs written")
-    return {"train_s": train_s, "render_rot_s": total_s - train_s}
+        total_s = time.perf_counter() - t0
+        print(f"[cli] train --synthetic --stage both --steps 3: {train_s:.2f} s; render_rot "
+              f"--ckpt stage1 --num-views 2: {total_s - train_s:.2f} s; checkpoints, 6 metrics "
+              f"rows and {len(pngs)} pngs written")
+        with timed("export"):
+            export = run_export(os.path.join(d, "stage1"), d, device)
+    return {"train_s": train_s, "render_rot_s": total_s - train_s, "export": export}
 
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--export-resolution", type=int, default=EXPORT_RESOLUTION,
+                    help="grid resolution of the full-width export (the export CLI's "
+                    "default is 128)")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
         sys.exit(2)
@@ -849,13 +1262,24 @@ def main():
     check(N == 125_664, f"surfel count {N} != 125664")
     print(f"[slice] scene: {N} surfels, field 16 levels x 2^18 rows, 512x512, "
           f"set-up {setup_s:.2f} s")
+    views, ov = slice_views(ds, params, model, "cuda")
     with timed("turntable and views"):
-        sl = run_slice(ds, params, model, "cuda")
+        sl = run_slice(ds, params, model, views, ov, "cuda")
     sl["setup_s"] = setup_s
+    # The tile composite's checks use the profiler, so they come after the
+    # views' timings: the earlier paths are timed as they were before.
+    with timed("tile lists"):
+        tl = run_tile_lists(params, model, views, ov)
+        with torch.no_grad():
+            comp_tiles = check_composite_tiles("synthetic", tiles_scene(seed=5))
+    with timed("oracle probe"):
+        probe = run_oracle_probe(params, model, views, ov)
+    with timed("export at full width"):
+        export_full = run_export_full(params, model, args.export_resolution)
     with timed("train: dataset"):
         ds_train = train_dataset(ds)
     tr = run_training(ds_train, params, model, "cuda")
-    with timed("cli"):
+    with timed("cli and export"):
         cli = run_cli("cuda")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
@@ -889,19 +1313,37 @@ def main():
         "occ_C3": {k: comp_bwd[1][k] for k in keys},
         "gen_NT256": {k: comp_bwd[2][k] for k in keys},
     }
+    tiles = {
+        "name": "composite_tiles",
+        "route": "cuda",
+        "source": "soar_tpu_torch/csrc/composite_tiles.cu",
+        "replaces": "soar_tpu/render/pallas_composite.py:41",
+        "launches": tl["launches"],
+        "max_abs_err": max([comp_tiles["max_abs_err"]]
+                           + [v["max_abs_err"] for v in tl["views"].values()]),
+        "ms": comp_tiles["ms"],
+        "plain_ms": comp_tiles["plain_ms"],
+        "bound_ms": comp_tiles["bound_ms"],
+        "bound_by": comp_tiles["bound_by"],
+        "library_ms": None,
+        "device_ms": comp_tiles["device_ms"],
+        **{f"{label}_view": {k: v[k] for k in keys + ("device_ms",)}
+           for label, v in tl["views"].items()},
+    }
     # The same numbers under shorter names.
-    for entry in (fwd, bwd):
+    for entry in (fwd, bwd, tiles):
         entry.update(max_err=entry["max_abs_err"], kernel_ms=entry["ms"])
     WALL_S["total after imports"] = time.perf_counter() - T_START
     print("[time] wall s per phase: " + ", ".join(f"{k} {v:.2f}" for k, v in WALL_S.items()))
-    report = {"card": info, "kernels": comp, "kernels_bwd": comp_bwd, "slice": sl,
-              "training": tr, "cli": cli, "wall_s": WALL_S}
+    report = {"card": info, "kernels": comp, "kernels_bwd": comp_bwd,
+              "kernels_tiles": comp_tiles, "slice": sl, "tile_lists": tl, "oracle_probe": probe,
+              "export_full": export_full, "training": tr, "cli": cli, "wall_s": WALL_S}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)
 
     print(info["nvidia_smi"])
-    print(json.dumps({"kernels": [fwd, bwd]}))
+    print(json.dumps({"kernels": [fwd, bwd, tiles]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}))
 

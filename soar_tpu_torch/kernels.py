@@ -39,6 +39,13 @@ SOURCES = {
         # feat, pixf, gacc, gcorr, gT, gfeat, NT, K, P, C, clamp, a_min, t_min, stream
         [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
     ),
+    "composite_tiles": (
+        "csrc/composite_tiles.cu",
+        # xy, conic, opac, colors, normals, depths, jinv, slot_valid, counts,
+        # origins, color, normal, depth, t_out, NT, K, tile, perpix_depth,
+        # clamp, a_min, t_min, stream
+        [_P] * 14 + [_I, _I, _I, _I, _F, _F, _F, _P],
+    ),
 }
 
 NVCC_FLAGS = [

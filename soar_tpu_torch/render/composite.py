@@ -5,7 +5,8 @@ The reference's per-pixel front-to-back loop (``forward.cu:497-633``: 0.99
 alpha clamp, 1/255 alpha skip, sticky T < 1e-4 early stop) written as an
 exclusive cumulative product along the depth-sorted axis.  These functions
 are the CPU path of the renderer and the plain version the CUDA composite
-kernel (:mod:`soar_tpu_torch.render.block_composite`) is held against.
+kernels (:mod:`soar_tpu_torch.render.block_composite`,
+:mod:`soar_tpu_torch.render.tiles_composite`) are held against.
 """
 
 from __future__ import annotations
@@ -182,3 +183,76 @@ def composite_block_bwd_plain(
         [gxy, gconic, gop[..., None], torch.zeros_like(gop)[..., None], ge, gattrs],
         dim=-1,
     )
+
+
+def depth_plane_coeffs(jinv: torch.Tensor) -> torch.Tensor:
+    """The linear form of the per-pixel depth's plane correction: with
+    ``e = depth_plane_coeffs(jinv)`` [..., 2], a slot's depth at screen
+    offset (dx, dy) from its mean is ``depth - (dx*e0 + dy*e1)`` (the z row
+    of ``auxiliary.h:390-397``, from ``jinv`` columns 0-3, 6 and 9)."""
+    return torch.stack(
+        [
+            jinv[..., 0] * jinv[..., 6] + jinv[..., 2] * jinv[..., 9],
+            jinv[..., 1] * jinv[..., 6] + jinv[..., 3] * jinv[..., 9],
+        ],
+        dim=-1,
+    )
+
+
+def tile_pixel_centres(tile_origins: torch.Tensor, tile: int) -> torch.Tensor:
+    """Pixel coordinates [NT, tile*tile, 2] (x, y; row-major within the
+    tile) of the tiles whose top-left pixels are ``tile_origins [NT, 2]``."""
+    l_ar = torch.arange(tile, dtype=torch.float32, device=tile_origins.device)
+    lx = l_ar.repeat(tile)
+    ly = l_ar.repeat_interleave(tile)
+    o = tile_origins.to(torch.float32)
+    return torch.stack([o[:, None, 0] + lx[None, :], o[:, None, 1] + ly[None, :]], dim=-1)
+
+
+def composite_tiles_plain(
+    xy: torch.Tensor,  # [NT, K, 2]
+    conic: torch.Tensor,  # [NT, K, 3]
+    opac: torch.Tensor,  # [NT, K]
+    colors: torch.Tensor,  # [NT, K, 3]
+    normals: torch.Tensor,  # [NT, K, 3]
+    depths: torch.Tensor,  # [NT, K]
+    jinv: torch.Tensor,  # [NT, K, 10]
+    slot_valid: torch.Tensor,  # [NT, K] bool
+    counts: torch.Tensor,  # [NT] int
+    tile_origins: torch.Tensor,  # [NT, 2] int (x, y) pixel origins
+    tile: int = 16,
+    alpha_clamp: float = 0.99,
+    alpha_min: float = 1.0 / 255.0,
+    t_min: float = 1e-4,
+    perpix_depth: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The function ``soar_tpu.render.pallas_composite.composite_tiles_pallas``
+    computes — the count-bounded per-tile walk over gathered tile lists —
+    through the dense [NT, P, K] cumprod chain: slots ``k < min(counts, K)``
+    that are valid, the skip rules and the sticky early stop of
+    :func:`composite_weights`, the per-pixel depth from ``jinv`` columns
+    [0, 1, 2, 3, 6, 9].
+
+    Returns ``(color [NT, P, 3], normal [NT, P, 3], depth [NT, P],
+    T [NT, P])`` with P = tile*tile; background and depth normalisation stay
+    with the caller (the inputs of :func:`finalize_accum`)."""
+    K = xy.shape[1]
+    pixf = tile_pixel_centres(tile_origins, tile)
+    d = xy[:, None, :, :] - pixf[:, :, None, :]  # [NT, P, K, 2]
+    k_ar = torch.arange(K, device=xy.device)
+    valid = slot_valid & (k_ar[None, :] < counts[:, None])
+    alpha = splat_alpha(
+        d, conic[:, None], opac[:, None], valid[:, None], alpha_clamp, alpha_min
+    )
+    weights, t_final = composite_weights(alpha, t_min)
+    color = torch.einsum("npk,nkc->npc", weights, colors)
+    normal = torch.einsum("npk,nkc->npc", weights, normals)
+    if perpix_depth:
+        j = jinv[:, None]
+        du0 = d[..., 0] * j[..., 0] + d[..., 1] * j[..., 1]
+        du1 = d[..., 0] * j[..., 2] + d[..., 1] * j[..., 3]
+        depth_k = depths[:, None, :] - (du0 * j[..., 6] + du1 * j[..., 9])
+        depth = torch.sum(weights * depth_k, dim=-1)
+    else:
+        depth = torch.einsum("npk,nk->np", weights, depths)
+    return color, normal, depth, t_final

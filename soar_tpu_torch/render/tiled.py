@@ -22,7 +22,12 @@ import torch
 
 from ..core.camera import Camera
 from .block_composite import composite_block
-from .composite import composite_block_plain, finalize_accum
+from .composite import (
+    composite_block_plain,
+    depth_plane_coeffs,
+    finalize_accum,
+    tile_pixel_centres,
+)
 from .preprocess import preprocess
 from .tilegrid import (
     cdiv,
@@ -135,6 +140,83 @@ def bin_and_sort(pre: Preprocessed, image_size: Tuple[int, int], cfg: RasterConf
     return sorted_idx, starts, counts, (ntx, nty), overflow
 
 
+# Column layout of :func:`pack_surfels`: one gather serves every attribute.
+_PACK_XY, _PACK_CONIC, _PACK_OPAC, _PACK_DEPTH = slice(0, 2), slice(2, 5), 5, 6
+_PACK_VIEW_DOT, _PACK_JINV, _PACK_NORMAL, _PACK_COLOR0 = 7, slice(8, 18), slice(18, 21), 21
+
+
+def pack_surfels(pre: Preprocessed) -> torch.Tensor:
+    """The per-surfel attributes the composite reads, as one [N, 21 + C]
+    array: xy 0:2, conic 2:5, opacity 5, depth 6, view_dot 7, jinv 8:18,
+    view-space normal 18:21, colours 21:.  Culled rows are zeroed: they are
+    still gatherable as first-K padding of a short tile run (masked by the
+    slot mask), and NaN*0 would stay NaN."""
+    packed = torch.cat(
+        [
+            pre.xy,
+            pre.conic,
+            pre.opacities[:, None],
+            pre.depth[:, None],
+            pre.view_dot[:, None],
+            pre.jinv,
+            pre.normal_view,
+            pre.colors,
+        ],
+        dim=-1,
+    )
+    return torch.where(pre.valid[:, None], packed, 0.0)
+
+
+def _slot_valid(counts: torch.Tensor, K: int) -> torch.Tensor:
+    k_ar = torch.arange(K, dtype=torch.int64, device=counts.device)
+    return k_ar[None, :] < torch.clamp_max(counts, K)[:, None]
+
+
+def gather_slots(packed, sorted_idx, starts, counts, K: int, reverse: bool = False):
+    """First-K gather of each tile's depth-ascending run; truncation drops
+    the farthest splats.  ``reverse`` walks the run from its far end (offset
+    ``count-1-k``), the back-surface order, keeping the farthest K.  Entries
+    past a tile's count read neighbouring runs (or below its start,
+    reversed) and are masked by the slot mask.  Returns ``(surfel indices
+    [NT, K], gathered rows [NT, K, F])``."""
+    NT, M = counts.shape[0], sorted_idx.shape[0]
+    k_ar = torch.arange(K, dtype=torch.int64, device=counts.device)
+    if reverse:
+        off = counts[:, None] - 1 - k_ar[None, :]
+    else:
+        off = k_ar[None, :].expand(NT, K)
+    entry = torch.clamp(starts[:, None] + off, 0, M - 1)  # [NT, K]
+    gidx = sorted_idx[entry]
+    return gidx, packed[gidx]
+
+
+def tile_origins(ntx: int, nty: int, tile: int, device) -> torch.Tensor:
+    """Top-left pixel (x, y) of every tile, row-major: int64 [NT, 2]."""
+    t_ar = torch.arange(ntx * nty, dtype=torch.int64, device=device)
+    return torch.stack([(t_ar % ntx) * tile, (t_ar // ntx) * tile], dim=-1)
+
+
+def gather_tile_lists(
+    pre: Preprocessed, image_size: Tuple[int, int], cfg: RasterConfig, reverse: bool = False
+):
+    """The gathered tile lists of one view, as the arguments of
+    :func:`soar_tpu_torch.render.tiles_composite.composite_tiles` (and of its
+    plain version): ``(xy, conic, opac, colors, normals, depths, jinv,
+    slot_valid, counts, tile_origins)`` from the same binning, sort and
+    first-K gather the rasterizer composites, plus the grid ``(ntx, nty)``
+    and the overflow canaries."""
+    sorted_idx, starts, counts, (ntx, nty), overflow = bin_and_sort(pre, image_size, cfg)
+    K = cfg.max_per_tile
+    _, gf = gather_slots(pack_surfels(pre), sorted_idx, starts, counts, K, reverse)
+    lists = (
+        gf[..., _PACK_XY], gf[..., _PACK_CONIC], gf[..., _PACK_OPAC],
+        gf[..., _PACK_COLOR0:], gf[..., _PACK_NORMAL], gf[..., _PACK_DEPTH],
+        gf[..., _PACK_JINV], _slot_valid(counts, K), counts,
+        tile_origins(ntx, nty, cfg.tile, pre.xy.device),
+    )
+    return lists, (ntx, nty), overflow
+
+
 def rasterize(
     g: GaussianInputs,
     camera: Camera,
@@ -205,52 +287,14 @@ def _rasterize_core(
     sorted_idx, starts, counts, (ntx, nty), overflow = bin_and_sort(
         pre, image_size, cfg
     )
-    NT = ntx * nty
-    M = sorted_idx.shape[0]
-
-    k_ar = torch.arange(K, dtype=torch.int64, device=dev)
-    slot_valid = k_ar[None, :] < torch.clamp_max(counts, K)[:, None]
-
+    slot_valid = _slot_valid(counts, K)
     C_ch = pre.colors.shape[-1]
-    packed = torch.cat(
-        [
-            pre.xy,  # 0:2
-            pre.conic,  # 2:5
-            pre.opacities[:, None],  # 5:6
-            pre.depth[:, None],  # 6:7
-            pre.view_dot[:, None],  # 7:8
-            pre.jinv,  # 8:18
-            pre.normal_view,  # 18:21
-            pre.colors,  # 21:21+C
-        ],
-        dim=-1,
-    )
-    # Zero culled rows: they are still gatherable as first-K padding of a
-    # short tile run (masked by slot_valid), and NaN*0 would stay NaN.
-    packed = torch.where(pre.valid[:, None], packed, 0.0)
+    packed = pack_surfels(pre)
 
     def gather(reverse: bool):
-        """First-K gather of each tile's depth-ascending run; truncation
-        drops the farthest splats.  ``reverse`` walks the run from its far
-        end (offset ``count-1-k``), the back-surface order, keeping the
-        farthest K.  Entries past a tile's count read neighbouring runs (or
-        below its start, reversed) and are masked by slot_valid."""
-        if reverse:
-            off = counts[:, None] - 1 - k_ar[None, :]
-        else:
-            off = k_ar[None, :].expand(NT, K)
-        entry = torch.clamp(starts[:, None] + off, 0, M - 1)  # [NT, K]
-        gidx = sorted_idx[entry]
-        return gidx, packed[gidx]
+        return gather_slots(packed, sorted_idx, starts, counts, K, reverse)
 
-    # Per-tile pixel coordinates [NT, tile*tile, 2].
-    t_ar = torch.arange(NT, dtype=torch.int64, device=dev)
-    tx = (t_ar % ntx) * tile
-    ty = (t_ar // ntx) * tile
-    l_ar = torch.arange(tile, dtype=torch.float32, device=dev)
-    lx = l_ar.repeat(tile)
-    ly = l_ar.repeat_interleave(tile)
-    pixf = torch.stack([tx[:, None] + lx[None, :], ty[:, None] + ly[None, :]], dim=-1)
+    pixf = tile_pixel_centres(tile_origins(ntx, nty, tile, dev), tile)
 
     def untile(img_flat, ch):
         return _untile(img_flat, ch, ntx, nty, tile, H, W)
@@ -260,22 +304,15 @@ def _rasterize_core(
 
     def composite_main(gf):
         """The main-pass composite of one gathered slot order."""
-        xy = gf[..., 0:2]
-        conic = gf[..., 2:5]
-        opac = gf[..., 5]
-        depths = gf[..., 6]
-        jinv = gf[..., 8:18]
-        normals = gf[..., 18:21]
-        colors = gf[..., 21:21 + C_ch]
+        xy = gf[..., _PACK_XY]
+        conic = gf[..., _PACK_CONIC]
+        opac = gf[..., _PACK_OPAC]
+        depths = gf[..., _PACK_DEPTH]
+        jinv = gf[..., _PACK_JINV]
+        normals = gf[..., _PACK_NORMAL]
+        colors = gf[..., _PACK_COLOR0:_PACK_COLOR0 + C_ch]
         if cfg.surface and cfg.perpix_depth:
-            # dif_z = dx*e0 + dy*e1, the linear form of the plane correction.
-            e = torch.stack(
-                [
-                    jinv[..., 0] * jinv[..., 6] + jinv[..., 2] * jinv[..., 9],
-                    jinv[..., 1] * jinv[..., 6] + jinv[..., 3] * jinv[..., 9],
-                ],
-                dim=-1,
-            )
+            e = depth_plane_coeffs(jinv)
         else:
             e = torch.zeros_like(xy)
         parts = [colors]
@@ -321,8 +358,8 @@ def _rasterize_core(
     # xy / conic detached as the reference detaches the occ-pass geometry
     # (``diff_gaussian_rasterizer.py:281-291``); opacity and the occ colors
     # keep their gradients, as in the JAX package.
-    xy, conic, opac = g_front[..., 0:2], g_front[..., 2:5], g_front[..., 5]
-    front = g_front[..., 7] <= -0.01
+    xy, conic, opac = g_front[..., _PACK_XY], g_front[..., _PACK_CONIC], g_front[..., _PACK_OPAC]
+    front = g_front[..., _PACK_VIEW_DOT] <= -0.01
     occ_g = occ_colors[gidx]
     Cb = occ_colors.shape[-1]
     accum_b, _, t_final_b = composite(

@@ -16,7 +16,14 @@ from soar_tpu_torch import kernels, resolve_device
 from soar_tpu_torch.body.model import make_test_body
 from soar_tpu_torch.render import block_composite as tbc
 from soar_tpu_torch.render import composite as tcomp
-from torch_port_helpers import assert_close_share, make_scene, t
+from soar_tpu_torch.render import tiles_composite as ttiles
+from torch_port_helpers import (
+    assert_close_share,
+    make_gathered,
+    make_scene,
+    make_sticky_stack,
+    t,
+)
 
 
 def test_entry_points_default_to_cuda_and_never_fall_back():
@@ -36,8 +43,10 @@ def test_kernel_library_named_by_source_hash(monkeypatch):
         assert path == kernels.library_path(name)
         assert (kernels.BUILD_DIR.parent / src).exists()
         # forward: 5 pointers, 4 ints, 3 floats, the stream; backward: one
-        # pointer more (three cotangents in, gfeat out).
-        assert len(argtypes) == {"composite_fwd": 13, "composite_bwd": 14}[name]
+        # pointer more (three cotangents in, gfeat out); the tile-list walk:
+        # 10 inputs and 4 outputs, 4 ints, 3 floats, the stream.
+        assert len(argtypes) == {"composite_fwd": 13, "composite_bwd": 14,
+                                 "composite_tiles": 22}[name]
         # Other nvcc flags name another library: a stale build is not reused.
         monkeypatch.setattr(kernels, "NVCC_FLAGS", [*kernels.NVCC_FLAGS, "-lineinfo"])
         assert kernels.library_path(name) != path
@@ -99,6 +108,62 @@ def test_composite_bwd_kernel_matches_plain_on_cuda(saturate, C):
         scale = float(want[..., col].abs().max())
         assert_close_share(got[..., col], want[..., col], 1e-4 * scale, 1e-3, msg=f"col {col}")
         assert_close_share(got[..., col], want[..., col], 1e-2 * scale, 0.0, msg=f"col {col}")
+
+
+TILE_FIXTURES = {
+    # the three fixtures of tests/test_pallas_composite.py
+    "gathered": lambda: make_gathered(),
+    "sticky_stop": make_sticky_stack,
+    "counts": lambda: make_gathered(seed=1, counts=[3, 0, 16, 16]),
+    "count_above_K": lambda: make_gathered(seed=4, counts=[40, 16, 7, 100]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("perpix_depth", [True, False])
+@pytest.mark.parametrize("fixture", sorted(TILE_FIXTURES))
+def test_composite_tiles_kernel_matches_plain_on_cuda(fixture, perpix_depth):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    data = [t(a).cuda() for a in TILE_FIXTURES[fixture]()]
+    before = ttiles.composite_tiles.launches
+    got = ttiles.composite_tiles(*data, perpix_depth=perpix_depth)
+    torch.cuda.synchronize()
+    assert ttiles.composite_tiles.launches == before + 1
+    want = tcomp.composite_tiles_plain(*data, perpix_depth=perpix_depth)
+    # The same f32 arithmetic, the kernel's sequential product against the
+    # plain cumprod: 1e-5 (1e-6 on the crafted sticky-stop stack), no flips
+    # at these few pixels.
+    atol = 1e-6 if fixture == "sticky_stop" else 1e-5
+    for g, w, name in zip(got, want, ("color", "normal", "depth", "T")):
+        assert g.shape == w.shape and not g.requires_grad
+        assert_close_share(g, w, atol, 0.0, msg=name)
+
+
+@pytest.mark.cuda
+def test_composite_tiles_kernel_at_render_shapes_on_cuda():
+    """NT=1024, K=96 with random per-tile counts (some above K) and int64
+    counts and origins, as the rasterizer's binning hands them over."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    import numpy as np
+
+    NT, K = 1024, 96
+    counts = np.random.RandomState(11).randint(0, K + 20, NT)
+    data = [t(a).cuda() for a in make_gathered(NT=NT, K=K, seed=10, counts=counts)]
+    data[8], data[9] = data[8].long(), data[9].long()
+    got = ttiles.composite_tiles(*data)
+    torch.cuda.synchronize()
+    want = tcomp.composite_tiles_plain(*data)
+    # 1% of the pixels may take another stop slot at the T < 1e-4 cutoff.
+    for g, w, name in zip(got, want, ("color", "normal", "depth", "T")):
+        assert_close_share(g, w, 1e-4, 0.01, msg=name)
+    empty = data[8] == 0
+    assert bool(empty.any())
+    assert bool((got[3][empty] == 1.0).all()) and bool((got[0][empty] == 0.0).all())
+    # A CPU tensor beside CUDA tensors is refused, not moved.
+    with pytest.raises(ValueError, match="one device"):
+        ttiles.composite_tiles(*data[:8], data[8].cpu(), data[9])
 
 
 def test_plain_backward_matches_finite_differences():

@@ -155,3 +155,59 @@ def port_copy(jparams, jmodel):
     from soar_tpu_torch.io.from_jax import avatar_from_numpy
 
     return avatar_from_numpy(*avatar_to_numpy(jparams, jmodel), device="cpu")
+
+
+def make_gathered(NT=4, K=16, tile=16, seed=0, counts=None):
+    """The gathered tile lists of tests/test_pallas_composite.py
+    (``make_gathered``: the same RandomState draws), as numpy arrays in the
+    argument order of ``composite_tiles_pallas``.  ``counts`` replaces the
+    full per-tile counts."""
+    rng = np.random.RandomState(seed)
+    origins = (rng.randint(0, 4, (NT, 2)) * tile).astype(np.int32)
+    xy = origins[:, None, :] + rng.uniform(0, tile, (NT, K, 2))
+    conic = np.zeros((NT, K, 3), np.float32)
+    conic[..., 0] = rng.uniform(0.02, 0.3, (NT, K))
+    conic[..., 2] = rng.uniform(0.02, 0.3, (NT, K))
+    conic[..., 1] = rng.uniform(-0.02, 0.02, (NT, K))
+    opac = rng.uniform(0.2, 1.0, (NT, K)).astype(np.float32)
+    colors = rng.uniform(0, 1, (NT, K, 3)).astype(np.float32)
+    normals = rng.uniform(-1, 1, (NT, K, 3)).astype(np.float32)
+    depths = np.sort(rng.uniform(1, 4, (NT, K)), axis=-1).astype(np.float32)
+    jinv = rng.uniform(-0.5, 0.5, (NT, K, 10)).astype(np.float32)
+    slot_valid = rng.rand(NT, K) > 0.1
+    cnt = np.full((NT,), K, np.int32) if counts is None else np.asarray(counts, np.int32)
+    return (xy.astype(np.float32), conic, opac, colors, normals, depths, jinv,
+            slot_valid, cnt, origins)
+
+
+def make_sticky_stack():
+    """The crafted one-tile stack of tests/test_pallas_composite.py's sticky
+    early-stop test: T walks 1 -> 0.01 -> 0.005, the third splat violates
+    (5e-5 < 1e-4), and the 0.5 splat behind it would re-pass a non-sticky
+    test with weight ~2.5e-3."""
+    NT, K, tile = 1, 8, 16
+    origins = np.zeros((1, 2), np.int32)
+    xy = np.full((NT, K, 2), tile / 2.0, np.float32)
+    conic = np.zeros((NT, K, 3), np.float32)
+    conic[..., 0] = conic[..., 2] = 1e-4
+    opac = np.array([[0.999, 0.5, 0.999, 0.5, 0.3, 0.2, 0.1, 0.05]], np.float32)
+    colors = np.ones((NT, K, 3), np.float32)
+    normals = np.ones((NT, K, 3), np.float32)
+    depths = np.arange(1, K + 1, dtype=np.float32)[None].repeat(NT, 0)
+    jinv = np.zeros((NT, K, 10), np.float32)
+    slot_valid = np.ones((NT, K), bool)
+    counts = np.full((NT,), K, np.int32)
+    return (xy, conic, opac, colors, normals, depths, jinv, slot_valid, counts, origins)
+
+
+def make_render_scene(n=60, seed=0, spread=0.4):
+    """The surfel scene of tests/test_render.py (``make_scene``), as numpy
+    arrays: means, unit quats, scales, opacities, colours."""
+    rng = np.random.RandomState(seed)
+    means = rng.randn(n, 3).astype(np.float32) * spread
+    quats = rng.randn(n, 4).astype(np.float32)
+    quats = quats / np.maximum(np.linalg.norm(quats, axis=-1, keepdims=True), 1e-12)
+    scales = np.abs(rng.randn(n, 3)).astype(np.float32) * 0.05 + 0.02
+    opac = rng.uniform(0.3, 1.0, n).astype(np.float32)
+    colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+    return means, quats.astype(np.float32), scales, opac, colors
