@@ -4,17 +4,24 @@
 
 1. Prints the card, its power limit and the toolchain.
 2. Builds every CUDA kernel of the port from ``soar_tpu_torch/csrc`` with
-   nvcc (sm_90a), one process per source, all started together.
+   nvcc (sm_90a), one process per source, all started together, and prints
+   each kernel instance's registers and spills (``-Xptxas -v``); the two
+   block composites must not spill.
 3. Holds each kernel against its plain PyTorch version on the card at the
-   shapes its paths give it, and times both (CUDA events): the forward
+   shapes its paths give it, and times both (CUDA events around wrapper
+   calls; for the block composites also the kernel's device time alone,
+   ``device_ms``, :func:`kernel_ms`): the forward
    composite at the turntable's K=96 (C=7 main pass, C=3 occ pass), the
-   backward composite at the training step's K=64 (NT=1024 and 256); the
-   count-bounded tile composite at K=96 with per-tile counts over 0..K is
-   checked with its path (5), after the views are timed.
+   backward composite at the training step's K=64 (NT=1024 and 256; two
+   launches on the same inputs must be bit-equal); the count-bounded tile
+   composite at K=96 with per-tile counts over 0..K is checked with its
+   path (5), after the views are timed.
 4. Drives the port's turntable (``soar_tpu_torch.cli.render_rot.
    run_turntable``) at full width — the 125,664-surfel procedural scene,
    16-level 2^18 hash field, 512x512 renders — with every launch counter
    set to 0 just before and read just after, and checks the outputs.
+   Records the inputs of the composite launches of one bench-camera view
+   and replays each launch (device time, bound on the same inputs).
    Then times one view, and holds it against the same view with the plain
    composite, at bench.py's camera and at one that frames the whole body.
 5. Drives the tile-list path of the count-bounded composite
@@ -40,12 +47,18 @@
    kernel launches a step.  Checks the losses, the parameter updates and
    that no op of a step computes on the CPU, profiles one step, and holds
    the kernel step's losses and gradients against the plain composite's.
+   The last warm-up step's composite launches are recorded and replayed
+   as the view's are (backward: two launches bit-equal).
 9. Runs the training CLI (``--synthetic --stage both --steps 3``), the
    turntable CLI on its checkpoint, and the mesh-export CLI on it (default
    flags with and without ``--field-attrs``), reads the OBJs back, and
    checks that no op of the density field computes on the CPU.
 10. Prints the wall seconds of each phase (``[time]``), a
-   ``{"kernels": [...]}`` line, then as the last line
+   ``{"kernels": [...]}`` line (the block composites with the summed
+   device ms and bound of their recorded main-path launches,
+   ``main_path_ms`` and ``main_path_bound_ms``, and their launches per step
+   or view of the counted runs, ``main_path_launches``), then
+   as the last line
    ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero and prints no result
@@ -83,6 +96,8 @@ BWD_CAP = 1e-2
 # evaluated slot costs offsets, power, exp, clamp, the skip tests and the
 # T update (19); a blended slot adds w = a*T, C channel FMAs and corr (2C+6).
 OPS_PER_EVAL = 19
+# composite_block's alpha clamp, alpha_min and t_min, as the paths pass them.
+COMPOSITE_CONSTS = (0.99, 1.0 / 255.0, 1e-4)
 # A blended slot of the tile composite: w = a*T, six colour and normal FMAs,
 # the plane-corrected depth (dx*e0 + dy*e1 and the subtraction: 4) and its
 # FMA.  The plane's coefficients e are formed once per slot that is read (two
@@ -149,6 +164,29 @@ def cuda_ms(fn, iters, warmup=3):
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+# Device cycles the queue waits behind before a kernel_ms window: ~25 ms at
+# the H100's clocks, longer than the host takes to enqueue a window's calls.
+QUEUE_SLEEP_CYCLES = 50_000_000
+
+
+def kernel_ms(fn, iters, warmup=3):
+    """Device ms per call of ``fn`` run back to back.  The window's calls
+    are queued behind a device-side sleep, so the events time the kernels
+    and not the host's enqueue rate: a wrapper call costs ~20 us of host
+    time, more than a composite takes on the renderer's real tile lists."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
     a.record()
     for _ in range(iters):
         fn()
@@ -278,7 +316,7 @@ def composite_bwd_bound_ms(args, C):
 
 
 def check_composite_kernel(C, seed):
-    from soar_tpu_torch.render.block_composite import composite_block
+    from soar_tpu_torch.render.block_composite import _launch_fwd, _pack, composite_block
     from soar_tpu_torch.render.composite import composite_block_plain
 
     args = composite_scene(C, seed)
@@ -297,14 +335,19 @@ def check_composite_kernel(C, seed):
           f"C={C}: {share:.4%} of pixels differ from the plain version by > {KERNEL_TOL}")
     with torch.no_grad():
         ms = cuda_ms(lambda: composite_block(*args), 200)
+        # The kernel alone: without the wrapper's packing of the inputs (a
+        # torch.cat) and its host time.
+        feat = _pack(*args[:6]).contiguous()
+        device_ms = kernel_ms(lambda: _launch_fwd(feat, args[6], *COMPOSITE_CONSTS), 200)
         plain_ms = cuda_ms(lambda: composite_block_plain(*args), 10)
     out = {"C": C, "max_abs_err": max(errs.values()), "err": errs,
-           "share_beyond_tol": share, "ms": ms, "plain_ms": plain_ms}
+           "share_beyond_tol": share, "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms}
     out.update(composite_bound_ms(args, C))
     print(f"[composite_fwd C={C}] max|kernel-plain| accum {errs['accum']:.3g} corr "
           f"{errs['corr']:.3g} T {errs['T']:.3g}; pixels beyond {KERNEL_TOL}: {share:.4%}; "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {out['bound_ms']:.4f} ms "
-          f"({out['bound_by']}); library call: none (no single PyTorch op computes it)")
+          f"kernel {ms:.4f} ms (device alone {device_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}); library call: none (no single "
+          f"PyTorch op computes it)")
     return out
 
 
@@ -313,7 +356,7 @@ def check_composite_bwd_kernel(NT, C, seed):
     step's K: per gfeat column, the largest |kernel - plain| relative to
     the column's largest magnitude, held to KERNEL_TOL with BWD_FLIP_SHARE
     of the entries allowed beyond it, and every entry to BWD_CAP."""
-    from soar_tpu_torch.render.block_composite import composite_block_bwd
+    from soar_tpu_torch.render.block_composite import _launch_bwd, _pack, composite_block_bwd
     from soar_tpu_torch.render.composite import composite_block_bwd_plain
 
     args = composite_scene(C, seed, NT=NT, K=TRAIN_K)
@@ -334,16 +377,97 @@ def check_composite_bwd_kernel(NT, C, seed):
     check(share <= BWD_FLIP_SHARE,
           f"bwd NT={NT} C={C}: {share:.4%} of gfeat entries beyond {KERNEL_TOL} x column max")
     check(max(rel) <= BWD_CAP, f"bwd NT={NT} C={C}: a gfeat entry beyond {BWD_CAP} x column max")
+    check(torch.equal(composite_block_bwd(*args, *cots), got),
+          f"bwd NT={NT} C={C}: two launches on the same inputs differ")
     ms = cuda_ms(lambda: composite_block_bwd(*args, *cots), 100)
+    feat = _pack(*args[:6]).contiguous()
+    device_ms = kernel_ms(lambda: _launch_bwd(feat, args[6], *cots, *COMPOSITE_CONSTS), 100)
     plain_ms = cuda_ms(lambda: composite_block_bwd_plain(*args, *cots), 5)
     out = {"NT": NT, "C": C, "K": TRAIN_K, "max_abs_err": float(diff.max()),
-           "col_rel_err": rel, "share_beyond_tol": share, "ms": ms, "plain_ms": plain_ms}
+           "col_rel_err": rel, "share_beyond_tol": share, "ms": ms, "device_ms": device_ms,
+           "plain_ms": plain_ms}
     out.update(composite_bwd_bound_ms(args, C))
     print(f"[composite_bwd NT={NT} C={C} K={TRAIN_K}] max|kernel-plain|/column max per gfeat "
           f"column {[f'{x:.2e}' for x in rel]} (valid column 0); entries beyond {KERNEL_TOL}: "
-          f"{share:.4%}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{share:.4%}; two launches bit-equal; kernel {ms:.4f} ms (device alone {device_ms:.4f} "
+          f"ms), plain {plain_ms:.4f} ms, bound "
           f"{out['bound_ms']:.4f} ms ({out['bound_by']}); library call: none (no single "
           f"PyTorch op computes the composite's backward)")
+    return out
+
+
+def record_launches(fn):
+    """Runs ``fn`` once with block_composite's two launch functions wrapped
+    (the package is not changed) and returns copies of the inputs of every
+    composite_fwd launch ``(feat, pixf, alpha_clamp, alpha_min, t_min)`` and
+    composite_bwd launch ``(feat, pixf, gacc, gcorr, gT, alpha_clamp,
+    alpha_min, t_min)``, in launch order: the shapes and data the main path
+    hands the kernels.  The cotangents are kept as the wrapper hands them to
+    the kernel (float32, contiguous)."""
+    from soar_tpu_torch.render import block_composite as bc
+
+    fwd, bwd = [], []
+    launch_fwd, launch_bwd = bc._launch_fwd, bc._launch_bwd
+
+    def rec_fwd(feat, pixf, *consts):
+        fwd.append((feat.detach().clone(), pixf.clone(), *consts))
+        return launch_fwd(feat, pixf, *consts)
+
+    def rec_bwd(feat, pixf, gacc, gcorr, gT, *consts):
+        cots = tuple(g.detach().to(torch.float32).contiguous().clone() for g in (gacc, gcorr, gT))
+        bwd.append((feat.detach().clone(), pixf.clone(), *cots, *consts))
+        return launch_bwd(feat, pixf, gacc, gcorr, gT, *consts)
+
+    bc._launch_fwd, bc._launch_bwd = rec_fwd, rec_bwd
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        bc._launch_fwd, bc._launch_bwd = launch_fwd, launch_bwd
+    return fwd, bwd
+
+
+def unpack_feat(feat, pixf):
+    """The packed [NT, K, 9 + C] features as composite_block's arguments."""
+    return (feat[..., 0:2], feat[..., 2:5], feat[..., 5], feat[..., 6] > 0.5,
+            feat[..., 9:], feat[..., 7:9], pixf)
+
+
+def replay_launches(label, fwd, bwd, iters=20):
+    """Times every recorded launch again through its wrapper (device ms,
+    :func:`kernel_ms`) and computes its bound on the same inputs; checks that
+    two composite_bwd launches on the same inputs give bit-equal gfeat.
+    Returns per kernel the sums over the launches, and each launch's shape
+    and numbers."""
+    from soar_tpu_torch.render import block_composite as bc
+
+    out = {}
+    for name, recs, launch, bound in (
+            ("composite_fwd", fwd, bc._launch_fwd, composite_bound_ms),
+            ("composite_bwd", bwd, bc._launch_bwd, composite_bwd_bound_ms)):
+        if not recs:
+            continue
+        rows = []
+        for rec in recs:
+            feat, pixf = rec[0], rec[1]
+            NT, K, F = feat.shape
+            if name == "composite_bwd":
+                check(torch.equal(launch(*rec), launch(*rec)),
+                      f"{label}: two composite_bwd launches at NT={NT} K={K} differ")
+            b = bound(unpack_feat(feat, pixf), F - 9)
+            rows.append({"NT": NT, "K": K, "C": F - 9, "ms": kernel_ms(lambda: launch(*rec), iters),
+                         "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                         "pairs_evaluated": b["pairs_evaluated"],
+                         "tiles_with_a_valid_slot": int((feat[..., 6] > 0.5).any(1).sum())})
+        out[name] = {"launches": len(rows), "ms": sum(r["ms"] for r in rows),
+                     "bound_ms": sum(r["bound_ms"] for r in rows), "per_launch": rows}
+        o = out[name]
+        print(f"[main path {label}] {name}: {o['launches']} launches, {o['ms']:.4f} ms "
+              f"(device, each launch replayed on its own inputs), bound {o['bound_ms']:.4f} ms; "
+              + ("two launches bit-equal on each; " if name == "composite_bwd" else "")
+              + "per launch (NT, K, C, tiles with a valid slot, ms, bound ms): "
+              + ", ".join(f"({r['NT']}, {r['K']}, {r['C']}, {r['tiles_with_a_valid_slot']}, "
+                          f"{r['ms']:.4f}, {r['bound_ms']:.4f})" for r in rows))
     return out
 
 
@@ -693,17 +817,24 @@ def framed_camera(params, model, ov, device):
                            prcppoint=torch.tensor([0.5, 0.5], device=device))
 
 
-def view_report(label, params, model, cam, ov):
-    """ms per view with the kernel and with the plain composite, the view's
-    kernel-vs-plain difference, its device profile, host ops and layers."""
+def view_fn(params, model, cam, ov, composite="kernel"):
+    """One turntable view at ``cam`` (white background, frame 0), with the
+    kernel composite or the plain one, as a function of no arguments."""
     from soar_tpu_torch.avatar.renderer import RenderSettings, render_view
     from soar_tpu_torch.render.types import RasterConfig
 
     bg = torch.ones(3, device=cam.w2c.device)
+    st = RenderSettings(raster=RasterConfig(composite=composite))
+    return lambda: render_view(params, model, cam, (512, 512), bg, 0, st, smpl_override=ov)
+
+
+def view_report(label, params, model, cam, ov):
+    """ms per view with the kernel and with the plain composite, the view's
+    kernel-vs-plain difference, its device profile, host ops and layers."""
+    bg = torch.ones(3, device=cam.w2c.device)
 
     def view(composite):
-        st = RenderSettings(raster=RasterConfig(composite=composite))
-        return lambda: render_view(params, model, cam, (512, 512), bg, 0, st, smpl_override=ov)
+        return view_fn(params, model, cam, ov, composite)
 
     with torch.no_grad():
         torch.cuda.reset_peak_memory_stats()
@@ -910,13 +1041,14 @@ BWD_PER_STEP = 8  # 4 gen mains, GT main + occ, normal front + back (see PERF.md
 CHANGING_GROUPS = {"xyz", "rotation", "occ", "field", "field_scales"}
 
 
-def run_training(ds, params, model, device):
+def train_setup(ds, params, model, device):
     """The full-width guidance-free training step (bench_trainstep.py's
     production step, reconstruction only): stage 0, 4 gen views at 256x256,
-    GT and normal passes at 512x512, K=64, the attribute field."""
-    import dataclasses
+    GT and normal passes at 512x512, K=64, the attribute field.  Returns its
+    config, state, optimizer, step, GT batches, the draws' generators and
+    ``one_step()``, which draws and runs one step."""
+    from types import SimpleNamespace
 
-    from soar_tpu_torch.render import block_composite
     from soar_tpu_torch.render.types import RasterConfig
     from soar_tpu_torch.train.config import StageConfig, TrainConfig
     from soar_tpu_torch.train.trainer import (
@@ -935,17 +1067,41 @@ def run_training(ds, params, model, device):
                            has_normals=True, **sizes)
     with timed("train: GT batches"):
         batches = [make_gt_batch(ds, model, f, device) for f in ds.train_idx]
-    gen =torch.Generator(device=device).manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(0)
     frames = np.random.RandomState(1)
 
     def one_step():
         draws = sample_step_draws(gen, cfg)
         return step(state, batches[frames.randint(len(batches))], draws)
 
+    return SimpleNamespace(cfg=cfg, stage=stage, raster=raster, sizes=sizes, state=state,
+                           opt=opt, step=step, batches=batches, gen=gen, frames=frames,
+                           one_step=one_step)
+
+
+def run_training(ds, params, model, device):
+    """Drives and checks the training step of :func:`train_setup`."""
+    import dataclasses
+
+    from soar_tpu_torch.render import block_composite
+    from soar_tpu_torch.train.trainer import make_train_step, sample_step_draws
+
+    ts = train_setup(ds, params, model, device)
+    cfg, stage, raster, sizes, state, opt, step = (
+        ts.cfg, ts.stage, ts.raster, ts.sizes, ts.state, ts.opt, ts.step)
+    batches, gen, frames, one_step = ts.batches, ts.gen, ts.frames, ts.one_step
+
     with timed("train: 2 warm-up steps"):
-        for _ in range(WARMUP_STEPS):
+        for _ in range(WARMUP_STEPS - 1):
             one_step()
-        torch.cuda.synchronize()
+        rec_fwd, rec_bwd = record_launches(one_step)
+    check((len(rec_fwd), len(rec_bwd)) == (FWD_PER_STEP, BWD_PER_STEP),
+          f"training: recorded {len(rec_fwd)} forward and {len(rec_bwd)} backward launches")
+    # Replayed and freed now, so the copies do not count in the step's peak
+    # memory below.
+    with timed("train: main-path launches replayed"):
+        main_path = replay_launches("train step", rec_fwd, rec_bwd)
+    del rec_fwd, rec_bwd
     groups = {name: [p.detach().clone() for p in ps] for name, ps in opt.groups.items()}
 
     # ---- the main path, counted: launch counters 0 just before, read after
@@ -1078,6 +1234,7 @@ def run_training(ds, params, model, device):
         tol = STEP_GRAD_TOL_BF16 if k.endswith("encoding") else STEP_GRAD_TOL
         check(v <= tol, f"kernel vs plain: grad of {k} differs by {v:.3g} (tolerance {tol})")
     return {
+        "main_path": main_path,
         "ms_per_step": ms, "step_ms": step_ms, "launches_fwd": fwd, "launches_bwd": bwd,
         "losses": rows, "groups_changed": sorted(changed), "peak_memory_gib": peak_gib,
         "profile": prof, "phase_ms": phase_ms, "aten_ops_per_step": n_ops,
@@ -1220,6 +1377,44 @@ def run_cli(device):
     return {"train_s": train_s, "render_rot_s": total_s - train_s, "export": export}
 
 
+def ptxas_summary(log):
+    """Registers and spill bytes per kernel instance from an ``-Xptxas -v``
+    log, keyed by the instance's template arguments (C=7 for
+    ``composite_fwd_kernel<7>``; ``<true>``/``<false>`` for the tile
+    composite's depth flag)."""
+    import re
+
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)", line)
+        if m:
+            args = re.search(r"I(L[ib]\d+E)+E", m.group(1))
+            key = (re.sub(r"Li(\d+)E", r"C=\1 ", args.group(0)).replace("Lb1E", "true ")
+                   .replace("Lb0E", "false ")[1:-1].strip() if args else m.group(1))
+            out.setdefault(key, {"registers": None, "spill_stores": 0, "spill_loads": 0})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and key:
+            out[key]["spill_stores"], out[key]["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and key:
+            out[key]["registers"] = int(m.group(1))
+    return out
+
+
+def main_path_keys(name, paths, counted):
+    """The kernels line's main_path_* keys of kernel ``name``: per path (a
+    training step, a bench-camera view), the summed device ms and bound of
+    its recorded launches, and ``counted``, the path's launches per step or
+    view in its counted run, which the recorded launches must match."""
+    for path, rep in paths.items():
+        check(rep[name]["launches"] == counted[path],
+              f"{name}: {rep[name]['launches']} launches recorded in a {path}, "
+              f"{counted[path]} counted")
+    return {"main_path_ms": {path: rep[name]["ms"] for path, rep in paths.items()},
+            "main_path_bound_ms": {path: rep[name]["bound_ms"] for path, rep in paths.items()},
+            "main_path_launches": dict(counted)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--export-resolution", type=int, default=EXPORT_RESOLUTION,
@@ -1241,11 +1436,16 @@ def main():
     with timed("build"):
         built = kernels.build()
         print(f"[build] {sorted(built)} in {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)")
+        ptxas = {}
         for name in kernels.SOURCES:
             kernels.load(name)
-            report = [ln.strip() for ln in kernels.ptxas_report(name).splitlines()
-                      if "registers" in ln or "spill" in ln]
-            print(f"[build] {name}: " + " | ".join(report[:4]))
+            ptxas[name] = ptxas_summary(kernels.ptxas_report(name))
+            print(f"[build] {name}: registers and spill stores/loads (bytes) per kernel "
+                  "instance: " + "; ".join(f"{k} {v['registers']} regs, {v['spill_stores']}/"
+                                          f"{v['spill_loads']}" for k, v in ptxas[name].items()))
+            if name in ("composite_fwd", "composite_bwd"):
+                check(all(v["spill_stores"] == v["spill_loads"] == 0
+                          for v in ptxas[name].values()), f"{name}: ptxas reports spills")
 
     with timed("kernel checks"):
         comp = [check_composite_kernel(7, seed=0), check_composite_kernel(3, seed=1)]
@@ -1266,6 +1466,12 @@ def main():
     with timed("turntable and views"):
         sl = run_slice(ds, params, model, views, ov, "cuda")
     sl["setup_s"] = setup_s
+    with timed("view: main-path launches replayed"), torch.no_grad():
+        rec_fwd, rec_bwd = record_launches(view_fn(params, model, views["bench"], ov))
+        check((len(rec_fwd), len(rec_bwd)) == (2, 0),
+              f"bench view: recorded {len(rec_fwd)} forward, {len(rec_bwd)} backward launches")
+        sl["main_path"] = replay_launches("bench view", rec_fwd, rec_bwd)
+        del rec_fwd, rec_bwd
     # The tile composite's checks use the profiler, so they come after the
     # views' timings: the earlier paths are timed as they were before.
     with timed("tile lists"):
@@ -1283,6 +1489,7 @@ def main():
         cli = run_cli("cuda")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
+    block_keys = keys + ("device_ms",)
     fwd = {
         "name": "composite_fwd",
         "route": "cuda",
@@ -1296,7 +1503,12 @@ def main():
         "bound_ms": comp[0]["bound_ms"],
         "bound_by": comp[0]["bound_by"],
         "library_ms": None,
-        "occ_C3": {k: comp[1][k] for k in keys},
+        "device_ms": comp[0]["device_ms"],
+        "occ_C3": {k: comp[1][k] for k in block_keys},
+        **main_path_keys("composite_fwd", {"train_step": tr["main_path"],
+                                           "bench_view": sl["main_path"]},
+                         {"train_step": tr["launches_fwd"] // TRAIN_STEPS,
+                          "bench_view": sl["launches"] // NUM_VIEWS}),
     }
     bwd = {
         "name": "composite_bwd",
@@ -1310,8 +1522,11 @@ def main():
         "bound_ms": comp_bwd[0]["bound_ms"],
         "bound_by": comp_bwd[0]["bound_by"],
         "library_ms": None,
-        "occ_C3": {k: comp_bwd[1][k] for k in keys},
-        "gen_NT256": {k: comp_bwd[2][k] for k in keys},
+        "device_ms": comp_bwd[0]["device_ms"],
+        "occ_C3": {k: comp_bwd[1][k] for k in block_keys},
+        "gen_NT256": {k: comp_bwd[2][k] for k in block_keys},
+        **main_path_keys("composite_bwd", {"train_step": tr["main_path"]},
+                         {"train_step": tr["launches_bwd"] // TRAIN_STEPS}),
     }
     tiles = {
         "name": "composite_tiles",
@@ -1335,7 +1550,7 @@ def main():
         entry.update(max_err=entry["max_abs_err"], kernel_ms=entry["ms"])
     WALL_S["total after imports"] = time.perf_counter() - T_START
     print("[time] wall s per phase: " + ", ".join(f"{k} {v:.2f}" for k, v in WALL_S.items()))
-    report = {"card": info, "kernels": comp, "kernels_bwd": comp_bwd,
+    report = {"card": info, "ptxas": ptxas, "kernels": comp, "kernels_bwd": comp_bwd,
               "kernels_tiles": comp_tiles, "slice": sl, "tile_lists": tl, "oracle_probe": probe,
               "export_full": export_full, "training": tr, "cli": cli, "wall_s": WALL_S}
     os.makedirs("chiprun_out", exist_ok=True)

@@ -12,29 +12,44 @@
 // Outputs accum[c] = sum w*attr_c, corr = sum w*(dx*e0 + dy*e1) (the
 // per-pixel-depth plane correction the caller subtracts) and the final T.
 //
-// Design: one block per tile, one thread per pixel.  The tile's K slot rows
-// (K x (9+C) floats, ~6 KB at K=96, C=7) are staged once into shared
-// memory, where every thread reads the same row at the same time
-// (a broadcast).  Each thread keeps its running T, the sticky `done` flag,
-// C channel sums and `corr` in registers, and the block leaves the slot
-// loop as soon as every pixel is done (__syncthreads_count).  The TPU
-// kernel's log-space triangular-matmul cumprod and MXU pixel sums were
-// workarounds for Mosaic and are not carried over: T is the plain
+// What bounds it on an H100: f32 ALU work and one expf per pixel-slot pair
+// actually walked (up to NT*P*K = 25M pairs at the 512x512, K=96 render)
+// against ~18 MB of input and output at that shape (~5 us at 3.35 TB/s):
+// it is operation-bound, and on the renderer's real tile lists, where a few
+// full tiles hold all the splats, the latency of those few blocks sets its
+// time.  What the design does about it:
+//   - A per-tile slot bound n (1 + the last valid slot, composite_common.cuh
+//     slot_bound): only rows [0, n) are staged and walked, and a tile with
+//     no valid slot writes accum 0, corr 0, T 1 and leaves at once.
+//   - One block per tile, one thread per pixel (two pixels a thread were
+//     slower on the real tile lists, where one block's latency sets the
+//     time).  After the staging barrier no block barrier is left: each warp
+//     walks on its own and leaves once all its pixels have stopped
+//     (__all_sync).
+//   - Slots in groups of kGroup (8; 4 was a little slower and spilled at
+//     C = 14, 15): the T-independent part of each slot of the group
+//     (splat_eval: offsets, power, expf, alpha, the skip tests, without a
+//     branch) runs first, into registers, so the group's expf and loads
+//     overlap; then the sequential part (stop test, w, the sums, T) in slot
+//     order, with selects instead of branches.  Per pixel the operations
+//     and their order are the ones of a slot-by-slot walk, so colour,
+//     normal and T stay bit-equal to composite_tiles.cu's.
+//   - Rows padded to a multiple of 4 floats in shared memory and read as
+//     float4 (a broadcast: every thread reads the same row).
+// The TPU kernel's log-space triangular-matmul cumprod and MXU pixel sums
+// were workarounds for Mosaic and are not carried over: T is the plain
 // sequential product, as in the reference's CUDA loop.
 //
-// What bounds it on an H100: f32 ALU work and one expf per pixel-slot pair
-// actually walked (up to NT*P*K = 25M pairs at the 512x512, K=96 render),
-// against ~18 MB of input and output at that shape (~5 us at 3.35 TB/s).
-// It is operation-bound; making it fast (fewer barriers, several pixels per
-// thread, skipping the invalid tail) is later work.
-//
 // The per-slot arithmetic (alpha, the skip tests, the T update) lives in
-// composite_common.cuh, which the backward kernel (composite_bwd.cu)
-// includes too, so both walks reach the same masks.
+// composite_common.cuh, which the backward kernel (composite_bwd.cu) and the
+// tile-list kernel (composite_tiles.cu) include too, so all reach the same
+// masks.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (see soar_tpu_torch/kernels.py).  Plain C entry
 // point for ctypes; it returns cudaGetLastError() after the launch.
+// Shared memory: K * FP floats of rows and kMaxWarps ints, dynamic, opted
+// into up to 227 KB (render/block_composite.py::fwd_smem_bytes mirrors it).
 
 #include <cuda_runtime.h>
 
@@ -44,6 +59,9 @@ namespace {
 
 using namespace soar;
 
+// Slots evaluated together before their sequential part.
+constexpr int kGroup = 8;
+
 template <int C>
 __global__ void __launch_bounds__(kMaxPixels)
 composite_fwd_kernel(const float* __restrict__ feat,  // [NT, K, 9 + C]
@@ -51,60 +69,97 @@ composite_fwd_kernel(const float* __restrict__ feat,  // [NT, K, 9 + C]
                      float* __restrict__ accum,       // [NT, C, P]
                      float* __restrict__ corr,        // [NT, P]
                      float* __restrict__ t_out,       // [NT, P]
-                     int K, float alpha_clamp, float alpha_min, float t_min) {
+                     int K, int P, float alpha_clamp, float alpha_min,
+                     float t_min) {
   constexpr int F = kAttr + C;
-  extern __shared__ float s_feat[];
+  constexpr int FP = padded_row(F);
+  extern __shared__ float4 smem4[];
+  float4* s_rows = smem4;                                    // [K][FP / 4]
+  int* s_warp = reinterpret_cast<int*>(smem4 + K * (FP / 4));  // [kMaxWarps]
   const int tile = blockIdx.x;
-  const int P = blockDim.x;
-  const int p = threadIdx.x;
+
+  // This thread's pixel; one past P (a partial last warp) walks as a pixel
+  // that stopped and writes nothing.
+  const int pix = threadIdx.x;
+  bool done = pix >= P;
+  const size_t q = static_cast<size_t>(tile) * P + (done ? 0 : pix);
+  const float px = pixf[2 * q];
+  const float py = pixf[2 * q + 1];
 
   const float* src = feat + static_cast<size_t>(tile) * K * F;
-  for (int i = p; i < K * F; i += P) s_feat[i] = src[i];
-  __syncthreads();
-
-  const size_t pix = static_cast<size_t>(tile) * P + p;
-  const float px = pixf[2 * pix];
-  const float py = pixf[2 * pix + 1];
+  const int n = slot_bound(src, K, F, s_warp);
 
   float acc[C];
 #pragma unroll
   for (int c = 0; c < C; ++c) acc[c] = 0.f;
-  float cr = 0.f;
-  float T = 1.f;
-  bool done = false;
+  float cr = 0.f, T = 1.f;
 
-  for (int k = 0; k < K; ++k) {
-    if (__syncthreads_count(!done) == 0) break;  // uniform across the block
-    if (done) continue;
-    const float* f = s_feat + k * F;
-    Splat s;
-    if (!splat_eval(f, px, py, alpha_clamp, alpha_min, s)) continue;
-    const float t_next = t_after(T, s.alpha);
-    if (t_next < t_min) {
-      done = true;
-      continue;
-    }
-    const float w = s.alpha * T;
-#pragma unroll
-    for (int c = 0; c < C; ++c) acc[c] += w * f[kAttr + c];
-    cr += w * (s.dx * f[kE] + s.dy * f[kE + 1]);
-    T = t_next;
+  if (n > 0) {
+    stage_rows<F>(reinterpret_cast<float*>(s_rows), src, n);
+    __syncthreads();
   }
 
-  float* out = accum + static_cast<size_t>(tile) * C * P + p;
+  for (int k0 = 0; k0 < n; k0 += kGroup) {
+    if (__all_sync(kFullMask, done)) break;  // uniform across the warp
+
+    // The T-independent part of the group's slots.
+    Splat s[kGroup];
+    bool keep[kGroup];
+    float e0[kGroup];
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      const bool in = k0 + g < n;
+      const Head h = load_head(s_rows + min(k0 + g, n - 1) * (FP / 4));
+      e0[g] = h.f[kE];
+      keep[g] = splat_eval(h.f, px, py, alpha_clamp, alpha_min, s[g]) & in;
+    }
+    // The sequential part, slot by slot; a slot the pixel does not blend
+    // leaves its sums and T as they were (selects, no branch).
+#pragma unroll
+    for (int g = 0; g < kGroup; ++g) {
+      const Tail<FP> tl = load_tail<FP>(s_rows + min(k0 + g, n - 1) * (FP / 4));
+      const float e1 = tl.f[kE + 1 - 8];
+      const Splat& sg = s[g];
+      const bool blend = keep[g] & !done;
+      const float t_next = t_after(T, sg.alpha);
+      const bool stop = t_next < t_min;
+      done |= blend & stop;
+      const bool use = blend & !stop;
+      const float w = sg.alpha * T;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const float a = acc[c] + w * tl.f[kAttr - 8 + c];
+        acc[c] = use ? a : acc[c];
+      }
+      const float r = cr + w * (sg.dx * e0[g] + sg.dy * e1);
+      cr = use ? r : cr;
+      T = use ? t_next : T;
+    }
+  }
+
+  if (pix >= P) return;
+  float* out = accum + static_cast<size_t>(tile) * C * P + pix;
 #pragma unroll
   for (int c = 0; c < C; ++c) out[static_cast<size_t>(c) * P] = acc[c];
-  corr[pix] = cr;
-  t_out[pix] = T;
+  corr[q] = cr;
+  t_out[q] = T;
 }
 
 template <int C>
-void launch(const float* feat, const float* pixf, float* accum, float* corr,
-            float* t_out, int NT, int K, int P, float alpha_clamp,
-            float alpha_min, float t_min, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(K) * (kAttr + C) * sizeof(float);
-  composite_fwd_kernel<C><<<NT, P, smem, stream>>>(
-      feat, pixf, accum, corr, t_out, K, alpha_clamp, alpha_min, t_min);
+int launch(const float* feat, const float* pixf, float* accum, float* corr,
+           float* t_out, int NT, int K, int P, float alpha_clamp,
+           float alpha_min, float t_min, cudaStream_t stream) {
+  // Once per instance: allow up to the opt-in limit of dynamic shared memory.
+  static const cudaError_t opted = cudaFuncSetAttribute(
+      composite_fwd_kernel<C>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemOptin);
+  if (opted != cudaSuccess) return opted;
+  constexpr int FP = padded_row(kAttr + C);
+  const size_t smem = (static_cast<size_t>(K) * FP + kMaxWarps) * sizeof(float);
+  const int threads = (P + 31) / 32 * 32;
+  composite_fwd_kernel<C><<<NT, threads, smem, stream>>>(
+      feat, pixf, accum, corr, t_out, K, P, alpha_clamp, alpha_min, t_min);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -119,9 +174,8 @@ extern "C" int composite_fwd(const float* feat, const float* pixf,
   switch (C) {
 #define SOAR_CASE(n)                                                        \
   case n:                                                                   \
-    launch<n>(feat, pixf, accum, corr, t_out, NT, K, P, alpha_clamp,        \
-              alpha_min, t_min, s);                                         \
-    break;
+    return launch<n>(feat, pixf, accum, corr, t_out, NT, K, P, alpha_clamp, \
+                     alpha_min, t_min, s);
     SOAR_CASE(1) SOAR_CASE(2) SOAR_CASE(3) SOAR_CASE(4)
     SOAR_CASE(5) SOAR_CASE(6) SOAR_CASE(7) SOAR_CASE(8)
     SOAR_CASE(9) SOAR_CASE(10) SOAR_CASE(11) SOAR_CASE(12)
@@ -130,5 +184,4 @@ extern "C" int composite_fwd(const float* feat, const float* pixf,
     default:
       return cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -32,8 +32,31 @@ from .. import kernels
 from .composite import composite_block_bwd_plain, composite_block_plain
 
 MAX_CHANNELS = 16  # the kernels are instantiated for C = 1..16
-MAX_PIXELS = 256  # one thread per pixel: 16x16 tiles
-_SMEM_LIMIT = 48 * 1024  # static-launch shared memory per block
+MAX_PIXELS = 256  # pixels per tile: 16x16 tiles
+# Shared memory a block may opt into on sm_90 (kSmemOptin in
+# csrc/composite_common.cuh); both kernels ask for it as dynamic memory.
+SMEM_OPTIN = 227 * 1024
+_MAX_WARPS = MAX_PIXELS // 32
+
+
+def _padded_row(F: int) -> int:
+    return (F + 3) // 4 * 4
+
+
+def fwd_smem_bytes(K: int, C: int, P: int) -> int:
+    """Shared memory composite_fwd.cu asks for: K rows padded to a multiple
+    of 4 floats, and one int a warp for the slot bound."""
+    return 4 * (K * _padded_row(9 + C) + _MAX_WARPS)
+
+
+def bwd_smem_bytes(K: int, C: int, P: int) -> int:
+    """Shared memory composite_bwd.cu asks for: the padded rows, each warp's
+    partial sums of the 8 + C gradients of every slot (one thread a pixel,
+    rounded up to whole warps), and two ints a warp (the slot bound and the
+    warp's last blended slot)."""
+    F = 9 + C
+    warps = -(-P // 32)
+    return 4 * (K * (_padded_row(F) + warps * (F - 1)) + 2 * _MAX_WARPS)
 
 
 def _pack(xy, conic, opac, valid, attrs, e) -> torch.Tensor:
@@ -42,7 +65,9 @@ def _pack(xy, conic, opac, valid, attrs, e) -> torch.Tensor:
     )
 
 
-def _check(feat: torch.Tensor, pixf: torch.Tensor):
+def _check(feat: torch.Tensor, pixf: torch.Tensor, smem_bytes, name: str):
+    """Shapes, types and the kernel's shared-memory footprint: a shape the
+    kernel cannot launch raises here, not as a CUDA error at launch."""
     NT, K, F = feat.shape
     C, P = F - 9, pixf.shape[1]
     if feat.dtype != torch.float32 or pixf.dtype != torch.float32:
@@ -50,9 +75,10 @@ def _check(feat: torch.Tensor, pixf: torch.Tensor):
     if not (1 <= C <= MAX_CHANNELS) or not (1 <= P <= MAX_PIXELS):
         raise ValueError(f"kernels take 1..{MAX_CHANNELS} channels and "
                          f"1..{MAX_PIXELS} pixels per tile, got C={C}, P={P}")
-    if K * F * 4 > _SMEM_LIMIT:
-        raise ValueError(f"K={K} slots x {F} features exceed the kernels' "
-                         f"{_SMEM_LIMIT} B of shared memory")
+    need = smem_bytes(K, C, P)
+    if need > SMEM_OPTIN:
+        raise ValueError(f"{name}: K={K} slots at C={C}, P={P} need {need} B of shared "
+                         f"memory, over the {SMEM_OPTIN} B a block may have")
     if tuple(pixf.shape) != (NT, P, 2):
         raise ValueError("composite_block: inconsistent tile/slot shapes")
     return NT, K, C, P
@@ -60,7 +86,7 @@ def _check(feat: torch.Tensor, pixf: torch.Tensor):
 
 def _launch_fwd(feat, pixf, alpha_clamp, alpha_min, t_min):
     """composite_fwd.cu: returns accum [NT, C, P], corr [NT, P], T [NT, P]."""
-    NT, K, C, P = _check(feat, pixf)
+    NT, K, C, P = _check(feat, pixf, fwd_smem_bytes, "composite_fwd")
     accum = torch.empty((NT, C, P), dtype=torch.float32, device=feat.device)
     corr = torch.empty((NT, P), dtype=torch.float32, device=feat.device)
     T = torch.empty((NT, P), dtype=torch.float32, device=feat.device)
@@ -78,7 +104,7 @@ def _launch_fwd(feat, pixf, alpha_clamp, alpha_min, t_min):
 
 def _launch_bwd(feat, pixf, gacc, gcorr, gT, alpha_clamp, alpha_min, t_min):
     """composite_bwd.cu: returns gfeat [NT, K, F] (zero ``valid`` column)."""
-    NT, K, C, P = _check(feat, pixf)
+    NT, K, C, P = _check(feat, pixf, bwd_smem_bytes, "composite_bwd")
     gacc = gacc.to(torch.float32).contiguous()
     gcorr = gcorr.to(torch.float32).contiguous()
     gT = gT.to(torch.float32).contiguous()

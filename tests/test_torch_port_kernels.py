@@ -9,6 +9,7 @@ port is installed.  On a machine with a GPU:
 kernel tests skip — a CUDA kernel has no CPU mode — and the rest run.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -108,6 +109,123 @@ def test_composite_bwd_kernel_matches_plain_on_cuda(saturate, C):
         scale = float(want[..., col].abs().max())
         assert_close_share(got[..., col], want[..., col], 1e-4 * scale, 1e-3, msg=f"col {col}")
         assert_close_share(got[..., col], want[..., col], 1e-2 * scale, 0.0, msg=f"col {col}")
+
+
+def _kernels_vs_plain(scene, seed, bwd=True):
+    """Both composite kernels (the forward alone without ``bwd``) on
+    ``scene`` (CUDA tensors) against their plain versions, with the
+    tolerances of the tests above; two backward launches must be
+    bit-equal.  Returns the kernels' outputs."""
+    NT, P, C = scene[0].shape[0], scene[6].shape[1], scene[4].shape[2]
+    got = tbc.composite_block(*scene)
+    want = tcomp.composite_block_plain(*scene)
+    for g, w, name in zip(got, want, ("accum", "corr", "T")):
+        assert_close_share(g, w, 1e-5, 0.01, msg=name)
+    if not bwd:
+        return got, None
+    g = torch.Generator().manual_seed(seed)
+    cots = [torch.randn(s, generator=g).cuda() for s in ((NT, C, P), (NT, P), (NT, P))]
+    gfeat = tbc.composite_block_bwd(*scene, *cots)
+    torch.cuda.synchronize()
+    assert torch.equal(tbc.composite_block_bwd(*scene, *cots), gfeat)
+    want_g = tcomp.composite_block_bwd_plain(*scene, *cots)
+    assert bool((gfeat[..., 6] == 0).all())
+    for col in range(9 + C):
+        scale = float(want_g[..., col].abs().max())
+        assert_close_share(gfeat[..., col], want_g[..., col], 1e-4 * scale, 1e-3, msg=f"col {col}")
+        assert_close_share(gfeat[..., col], want_g[..., col], 1e-2 * scale, 0.0, msg=f"col {col}")
+    return got, gfeat
+
+
+def _largest_K(smem_bytes, C, P):
+    K = 1
+    while smem_bytes(K + 1, C, P) <= tbc.SMEM_OPTIN:
+        K += 1
+    return K
+
+
+def _edge_scene(case):
+    """A scene (numpy) for one edge of the kernels' per-tile slot bound,
+    warp walks and shared-memory layout."""
+    C = {"C=1": 1, "C=16": 16}.get(case, 7)
+    K = 64
+    if case == "fwd_K_at_smem_limit":
+        K = _largest_K(tbc.fwd_smem_bytes, C, 256)
+    elif case == "bwd_K_at_smem_limit":
+        K = _largest_K(tbc.bwd_smem_bytes, C, 256)
+    NT = 2 if "limit" in case else 8
+    xy, conic, opac, valid, attrs, e, pixf = make_scene(NT=NT, K=K, C=C, seed=21)
+    k = np.arange(K)[None]
+    if case == "empty_tiles":
+        valid[::2] = False
+    elif case == "non_prefix_mask":  # as slot_valid & front from the occlusion pass
+        valid &= (k % 3 == 0) & (k < K - 5)
+    elif case == "last_valid_slot_0":
+        valid[:] = k == 0
+    elif case == "last_valid_slot_K-1":
+        valid &= (k % 7 == 0) | (k == K - 1)
+        valid[:, K - 1] = True
+    elif case == "P=100":
+        pixf = pixf[:, :100]
+    return xy, conic, opac, valid, attrs, e, pixf
+
+
+EDGE_CASES = ["empty_tiles", "non_prefix_mask", "last_valid_slot_0", "last_valid_slot_K-1",
+              "P=100", "C=1", "C=16", "fwd_K_at_smem_limit", "bwd_K_at_smem_limit"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_composite_kernels_edge_cases_on_cuda(case):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    scene = [t(a).cuda() for a in _edge_scene(case)]
+    # The forward's limit is far beyond the backward's (no partial sums).
+    (accum, corr, T), gfeat = _kernels_vs_plain(scene, seed=22,
+                                                bwd=case != "fwd_K_at_smem_limit")
+    if case == "empty_tiles":  # a tile with no valid slot leaves at once
+        assert bool((accum[::2] == 0).all()) and bool((corr[::2] == 0).all())
+        assert bool((T[::2] == 1).all()) and bool((gfeat[::2] == 0).all())
+    if case == "fwd_K_at_smem_limit":  # one slot more is refused before launch
+        feat = tbc._pack(*scene[:6])
+        K = feat.shape[1]
+        more = torch.cat([feat, feat[:, :1]], 1)
+        with pytest.raises(ValueError, match="shared memory"):
+            tbc._launch_fwd(more, scene[6], 0.99, 1 / 255, 1e-4)
+        assert K == _largest_K(tbc.fwd_smem_bytes, 7, 256)
+
+
+# (K, C) of the main path's composites at P = 256: the turntable's main
+# and occlusion passes (K = 96), the training step's (K = 64).
+MAIN_PATH_SHAPES = [(96, 7), (96, 3), (64, 7), (64, 3)]
+
+
+@pytest.mark.parametrize("P", [256, 100])
+@pytest.mark.parametrize("C", [1, 3, 7, 16])
+@pytest.mark.parametrize("kernel", ["composite_fwd", "composite_bwd"])
+def test_smem_footprint_admits_main_path_and_refuses_one_slot_more(kernel, C, P):
+    """The wrapper's footprint check, per kernel: the main path's shapes
+    pass, the largest K that fits passes, one slot more raises ValueError
+    (before any launch, so this runs on CPU tensors)."""
+    smem = tbc.fwd_smem_bytes if kernel == "composite_fwd" else tbc.bwd_smem_bytes
+
+    def check(K, C, P):
+        return tbc._check(torch.zeros(1, K, 9 + C), torch.zeros(1, P, 2), smem, kernel)
+
+    for K, C_path in MAIN_PATH_SHAPES:
+        assert check(K, C_path, 256) == (1, K, C_path, 256)
+    K = _largest_K(smem, C, P)
+    assert check(K, C, P) == (1, K, C, P)
+    with pytest.raises(ValueError, match="shared memory"):
+        check(K + 1, C, P)
+    # The bytes the C entry points ask for: rows padded to 4 floats and a
+    # few ints; the backward adds every warp's partial sums of 8 + C
+    # gradients per slot (30,720 B at the step's K=64, C=7, 8 warps).
+    if kernel == "composite_fwd":
+        assert smem(64, 7, 256) == 4 * (64 * 16 + 8)
+    else:
+        assert smem(64, 7, 256) == 4 * 64 * 16 + 30_720 + 64
+        assert smem(96, 16, 256) == 4 * 96 * 28 + 4 * 8 * 96 * 24 + 64
 
 
 TILE_FIXTURES = {
