@@ -5,8 +5,8 @@
 1. Prints the card, its power limit and the toolchain.
 2. Builds every CUDA kernel of the port from ``soar_tpu_torch/csrc`` with
    nvcc (sm_90a), one process per source, all started together, and prints
-   each kernel instance's registers and spills (``-Xptxas -v``); the two
-   block composites must not spill.
+   each kernel instance's registers and spills (``-Xptxas -v``); no
+   kernel may spill.
 3. Holds each kernel against its plain PyTorch version on the card at the
    shapes its paths give it, and times both (CUDA events around wrapper
    calls; for the block composites also the kernel's device time alone,
@@ -29,7 +29,9 @@
    composite_tiles``) on the real tile lists of both views, its launch
    counter set to 0 just before and read just after, and holds the result
    against its plain version and against the forward composite's
-   accumulations on the same lists.
+   accumulations on the same lists (colour, normal and T to the bit); two
+   launches must be bit-equal and a wrapper call one device op.  Prints
+   the heaviest tile's slots and the kernel's ns per slot walked there.
 6. Runs the truncation probe: the tiled render (kernel composite, K=64 and
    K=96) against the exact oracle (``render.oracle.rasterize_oracle_at``) at
    4,096 seeded pixels of both views; prints PSNR inside the oracle's
@@ -517,13 +519,19 @@ def tiles_bound_ms(lists):
     evals, blends = int(evaluated.sum()), int(blended.sum())
     slot_seen = evaluated.any(1)  # [NT, K]
     k_ar = torch.arange(1, K + 1, device=slot_seen.device)
-    slots_read = int((slot_seen * k_ar).amax(1).sum())
+    read_per_tile = (slot_seen * k_ar).amax(1)
+    slots_read = int(read_per_tile.sum())
     out = _bound(evals * OPS_PER_EVAL + blends * TILES_OPS_PER_BLEND
                  + slots_read * TILES_OPS_PER_SLOT,
                  slots_read * TILES_BYTES_PER_SLOT + NT * 12 + 4 * NT * P * 8)
+    heaviest = int(read_per_tile.argmax())
     out.update(pairs_evaluated=evals, pairs_blended=blends, slots_read=slots_read,
                slots_below_count=int(torch.clamp(lists[8], 0, K).sum()),
-               pairs_until_tile_exit=slots_read * P)
+               pairs_until_tile_exit=slots_read * P,
+               # The tile whose pixels walk furthest: its slot bound (1 + its
+               # last valid slot below the count) and the slots it walks.
+               heaviest_tile_slot_bound=int((block[3] * k_ar).amax(1)[heaviest]),
+               heaviest_tile_walked=int(read_per_tile[heaviest]))
     return out
 
 
@@ -564,7 +572,10 @@ def check_composite_tiles(label, lists, vs_fwd=False):
 
     tag = f"[composite_tiles {label}]"
     got = composite_tiles(*lists)
+    again = composite_tiles(*lists)
     torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"{label}: two launches of composite_tiles differ")
     want = composite_tiles_plain(*lists)
     errs, share, touched = compare_tiles(f"{label}: kernel vs plain", got, want)
     empty = torch.clamp(lists[8], 0) == 0
@@ -579,6 +590,10 @@ def check_composite_tiles(label, lists, vs_fwd=False):
             accum, corr, T = composite_block(*as_block_args(lists))
         fwd = (accum[..., 0:3], accum[..., 3:6], accum[..., 6] - corr, T)
         errs_f, share_f, _ = compare_tiles(f"{label}: kernel vs composite_fwd", got, fwd)
+        # The same operations in the same order per pixel: colour, normal and
+        # T to the bit (the depth's plane correction is associated otherwise).
+        check(all(torch.equal(got[i], fwd[i]) for i in (0, 1, 3)),
+              f"{label}: colour, normal or T differ from composite_fwd's")
         out.update(vs_fwd_err=errs_f, vs_fwd_share_beyond_tol=share_f)
         print(f"{tag} max|composite_tiles - composite_fwd accumulations| "
               + ", ".join(f"{k} {v:.3g}" for k, v in errs_f.items())
@@ -586,24 +601,37 @@ def check_composite_tiles(label, lists, vs_fwd=False):
     out["ms"] = cuda_ms(lambda: composite_tiles(*lists), 200)
     out["plain_ms"] = cuda_ms(lambda: composite_tiles_plain(*lists), 10)
     # The kernel alone on the device timeline; ``ms`` above is the wrapper's
-    # call, with its host work and the copies that make sliced inputs
-    # contiguous.
-    prof = profile_view(lambda: [composite_tiles(*lists) for _ in range(10)])
+    # call, with its host work.  The wrapper reads the lists as they come,
+    # so a call is one device op: the kernel.
+    # The profiler (CUPTI) now and then records none of a window's kernels
+    # (seen once in ~12 runs); a window is profiled again, up to twice more,
+    # only when it lacks some of its own 10 launches.
+    for _ in range(3):
+        prof = profile_view(lambda: [composite_tiles(*lists) for _ in range(10)])
+        if prof["composite_tiles_kernels"] == 10:
+            break
+    check(prof["composite_tiles_kernels"] == 10,
+          f"{label}: the profiler saw {prof['composite_tiles_kernels']} of 10 composite_tiles "
+          "kernels in three windows")
     out["device_ms"] = prof["composite_tiles_ms"] / 10
-    out["wrapper_device_ops"] = prof["device_kernels"] // 10
-    check(out["device_ms"] > 0, f"{label}: the profiler saw no composite_tiles kernel")
+    out["wrapper_device_ops"] = prof["device_kernels"] / 10
+    check(out["wrapper_device_ops"] == 1,
+          f"{label}: {out['wrapper_device_ops']} device ops per composite_tiles call, want 1")
     out.update(tiles_bound_ms(lists))
+    out["ns_per_slot_heaviest"] = 1e6 * out["device_ms"] / max(out["heaviest_tile_walked"], 1)
     print(f"{tag} NT={out['NT']} K={out['K']}, {out['tiles_with_count_0']} tiles with count 0, "
           f"{out['tiles_with_count_above_K']} above K; max|kernel-plain| "
           + ", ".join(f"{k} {v:.3g}" for k, v in errs.items())
           + f"; of {touched} touched pixels beyond {KERNEL_TOL}: {share:.4%} (largest allowed "
           f"{TILES_CAP}); kernel {out['ms']:.4f} ms per call of "
-          f"the wrapper ({out['wrapper_device_ops']} device ops, the kernel alone "
+          f"the wrapper ({out['wrapper_device_ops']:g} device ops, the kernel alone "
           f"{out['device_ms']:.4f} ms by the profiler), plain {out['plain_ms']:.4f} ms, bound {out['bound_ms']:.4f} ms ({out['bound_by']}: "
           f"{out['pairs_evaluated']} pairs evaluated, {out['pairs_blended']} blended, "
           f"{out['slots_read']} of {out['slots_below_count']} slots below the counts read, "
-          f"{out['pairs_until_tile_exit']} pairs until the tiles' exits); library call: none "
-          f"(no single PyTorch op computes it)")
+          f"{out['pairs_until_tile_exit']} pairs until the tiles' exits); heaviest tile: "
+          f"slot bound {out['heaviest_tile_slot_bound']}, {out['heaviest_tile_walked']} slots "
+          f"walked, {out['ns_per_slot_heaviest']:.1f} ns of the kernel per walked slot; "
+          f"library call: none (no single PyTorch op computes it)")
     return out
 
 
@@ -680,6 +708,7 @@ def profile_view(render):
         "composite_fwd_ms": sum(r[0] for r in rows if "composite_fwd" in r[2]),
         "composite_bwd_ms": sum(r[0] for r in rows if "composite_bwd" in r[2]),
         "composite_tiles_ms": sum(r[0] for r in rows if "composite_tiles" in r[2]),
+        "composite_tiles_kernels": sum(r[1] for r in rows if "composite_tiles" in r[2]),
         "top": [{"ms": r[0], "calls": r[1], "name": r[2][:90]} for r in rows[:15]],
     }
 
@@ -888,6 +917,33 @@ def view_report(label, params, model, cam, ov):
     }
 
 
+VIEW_SIZE = (512, 512)
+
+
+def view_tile_raster():
+    """The main pass's raster settings of a turntable view, front to back."""
+    import dataclasses
+
+    from soar_tpu_torch.avatar.renderer import RenderSettings
+
+    st = RenderSettings()
+    return st, dataclasses.replace(st.raster, render_front=False, sort_descending=False)
+
+
+def view_tile_lists(params, model, cam, ov):
+    """The gathered tile lists of one view (125,664 surfels, 512x512,
+    K=96) as the rasterizer gathers them: ``(lists, (ntx, nty),
+    overflow)``, the lists in ``composite_tiles``' argument order."""
+    from soar_tpu_torch.avatar.renderer import posed_gaussians
+    from soar_tpu_torch.render.preprocess import preprocess
+    from soar_tpu_torch.render.tiled import gather_tile_lists
+
+    st, cfg = view_tile_raster()
+    with torch.no_grad():
+        g, _ = posed_gaussians(params, model, 0, st, smpl_override=ov)
+        return gather_tile_lists(preprocess(g, cam, VIEW_SIZE, cfg), VIEW_SIZE, cfg)
+
+
 def run_tile_lists(params, model, views, ov):
     """The count-bounded tile composite on the real tile lists of the
     views (125,664 surfels, 512x512, K=96): gathered as the rasterizer
@@ -895,25 +951,18 @@ def run_tile_lists(params, model, views, ov):
     just before and read just after, assembled to an image; then, not
     counted, held against the plain version and against composite_fwd's
     accumulations on the same lists, and timed."""
-    import dataclasses
-
-    from soar_tpu_torch.avatar.renderer import RenderSettings, posed_gaussians
     from soar_tpu_torch.render import tiles_composite
     from soar_tpu_torch.render.composite import finalize_accum
-    from soar_tpu_torch.render.preprocess import preprocess
-    from soar_tpu_torch.render.tiled import gather_tile_lists
     from soar_tpu_torch.render.tilegrid import untile
 
-    size = (512, 512)
-    st = RenderSettings()
-    cfg = dataclasses.replace(st.raster, render_front=False, sort_descending=False)
+    size = VIEW_SIZE
+    _, cfg = view_tile_raster()
     bg = torch.ones(3, device="cuda")
     all_lists, images = {}, {}
     tiles_composite.composite_tiles.launches = 0
     with torch.no_grad():
         for label, cam in views.items():
-            g, _ = posed_gaussians(params, model, 0, st, smpl_override=ov)
-            lists, (ntx, nty), overflow = gather_tile_lists(preprocess(g, cam, size, cfg), size, cfg)
+            lists, (ntx, nty), overflow = view_tile_lists(params, model, cam, ov)
             accum = tiles_composite.composite_tiles(*lists, tile=cfg.tile)
             color, normal, depth, opac, _ = finalize_accum(*accum, bg, cfg.normalize_depth)
             images[label] = {"render": untile(color, 3, ntx, nty, cfg.tile, *size),
@@ -1443,9 +1492,8 @@ def main():
             print(f"[build] {name}: registers and spill stores/loads (bytes) per kernel "
                   "instance: " + "; ".join(f"{k} {v['registers']} regs, {v['spill_stores']}/"
                                           f"{v['spill_loads']}" for k, v in ptxas[name].items()))
-            if name in ("composite_fwd", "composite_bwd"):
-                check(all(v["spill_stores"] == v["spill_loads"] == 0
-                          for v in ptxas[name].values()), f"{name}: ptxas reports spills")
+            check(all(v["spill_stores"] == v["spill_loads"] == 0
+                      for v in ptxas[name].values()), f"{name}: ptxas reports spills")
 
     with timed("kernel checks"):
         comp = [check_composite_kernel(7, seed=0), check_composite_kernel(3, seed=1)]
@@ -1490,6 +1538,8 @@ def main():
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     block_keys = keys + ("device_ms",)
+    tiles_keys = ("device_ms", "wrapper_device_ops", "heaviest_tile_slot_bound",
+                  "heaviest_tile_walked", "ns_per_slot_heaviest")
     fwd = {
         "name": "composite_fwd",
         "route": "cuda",
@@ -1542,8 +1592,9 @@ def main():
         "bound_by": comp_tiles["bound_by"],
         "library_ms": None,
         "device_ms": comp_tiles["device_ms"],
-        **{f"{label}_view": {k: v[k] for k in keys + ("device_ms",)}
+        **{f"{label}_view": {k: v[k] for k in keys + tiles_keys}
            for label, v in tl["views"].items()},
+        **{k: comp_tiles[k] for k in tiles_keys[1:]},
     }
     # The same numbers under shorter names.
     for entry in (fwd, bwd, tiles):

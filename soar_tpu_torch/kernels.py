@@ -42,9 +42,10 @@ SOURCES = {
     "composite_tiles": (
         "csrc/composite_tiles.cu",
         # xy, conic, opac, colors, normals, depths, jinv, slot_valid, counts,
-        # origins, color, normal, depth, t_out, NT, K, tile, perpix_depth,
-        # clamp, a_min, t_min, stream
-        [_P] * 14 + [_I, _I, _I, _I, _F, _F, _F, _P],
+        # origins, color, normal, depth, t_out, strides (int64 [14], host),
+        # NT, K, tile, perpix_depth, counts_i64, origins_i64, clamp, a_min,
+        # t_min, stream
+        [_P] * 14 + [ctypes.POINTER(ctypes.c_int64)] + [_I] * 6 + [_F, _F, _F, _P],
     ),
 }
 

@@ -12,20 +12,121 @@ renderer path calls it — the renders go through
 :func:`soar_tpu_torch.render.block_composite.composite_block` — and it is
 kept as the per-tile walk over a tile's actual splat list, held equal to the
 dense composite.
+
+The kernel reads its inputs as they come (:func:`launch_args`): each float
+list through its own tile and slot strides, ``counts`` and ``tile_origins``
+as int32 or int64, ``slot_valid`` as bytes.  The column views that
+:func:`soar_tpu_torch.render.tiled.gather_tile_lists` returns are handed over
+without a copy, so a call on them is one device op.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import NamedTuple, Tuple
 
 import torch
 
 from .. import kernels
+from .block_composite import SMEM_OPTIN
 from .composite import composite_tiles_plain
 
-MAX_PIXELS = 256  # one thread per pixel: tiles up to 16x16
+MAX_PIXELS = 256  # tiles up to 16x16
 _RECORD_FLOATS = 20  # the kernel's per-slot record in shared memory
-_SMEM_LIMIT = 48 * 1024  # static-launch shared memory per block
+_GROUP = 8  # slots the kernel evaluates together (kGroup)
+
+# The float lists in the kernel's argument order, with their last
+# dimension (None: an [NT, K] list).
+_FLOAT_LISTS = (("xy", 2), ("conic", 3), ("opac", None), ("colors", 3),
+                ("normals", 3), ("depths", None), ("jinv", 10))
+
+
+def tiles_smem_bytes(K: int) -> int:
+    """Shared memory composite_tiles.cu asks for: one 20-float record a
+    slot, K rounded up to whole groups of slots, dynamic, up to
+    ``SMEM_OPTIN``."""
+    return 4 * _RECORD_FLOATS * (-(-K // _GROUP) * _GROUP)
+
+
+class LaunchArgs(NamedTuple):
+    """What :func:`_launch` hands the kernel.  ``tensors`` are the ten
+    inputs as the kernel reads them — each the caller's own tensor, or a
+    copy where ``copied`` names it (``slot_valid`` as a uint8 view) — and
+    ``pointers`` their addresses; ``strides`` the (tile, slot) strides in
+    elements of the seven float lists, in their argument order."""
+
+    tensors: Tuple[torch.Tensor, ...]
+    pointers: Tuple[int, ...]
+    strides: Tuple[int, ...]
+    copied: Tuple[str, ...]
+    counts_i64: bool
+    origins_i64: bool
+    NT: int
+    K: int
+    P: int
+
+
+def launch_args(xy, conic, opac, colors, normals, depths, jinv, slot_valid, counts,
+                tile_origins, tile: int = 16) -> LaunchArgs:
+    """Checks devices, types, shapes and the shared-memory footprint, and
+    takes each input as the kernel can read it: a float list with any tile
+    and slot strides, but unit stride over the last dimension of an
+    [NT, K, W] list; ``counts`` [NT] and ``tile_origins`` [NT, 2] contiguous
+    int32 or int64; ``slot_valid`` contiguous bool.  Only an input that is
+    not so is copied (another integer type goes to int32).  Runs on any
+    device and launches nothing.  It runs on every call, so each check is
+    one attribute read (a call's host time is most of its time on the
+    renderer's real tile lists)."""
+    floats = (xy, conic, opac, colors, normals, depths, jinv)
+    everything = (*floats, slot_valid, counts, tile_origins)
+    dev = xy.get_device()  # -1 on the CPU; comparing torch.device objects costs 2 us
+    if any(t.get_device() != dev for t in everything):
+        raise ValueError(
+            "composite_tiles takes CPU or CUDA tensors on one device, got "
+            f"{sorted({str(t.device) for t in everything})}"
+        )
+    if xy.dim() != 3:
+        raise ValueError(f"composite_tiles: xy has shape {tuple(xy.shape)}, want [NT, K, 2]")
+    NT, K, _ = xy.shape
+    P = tile * tile
+    copied = []
+    ins, strides = [], []
+    for t, (name, W) in zip(floats, _FLOAT_LISTS):
+        shape = (NT, K) if W is None else (NT, K, W)
+        if t.dtype != torch.float32:
+            raise TypeError(f"composite_tiles: {name} must be float32, got {t.dtype}")
+        if t.shape != shape:
+            raise ValueError(f"composite_tiles: {name} has shape {tuple(t.shape)}, want {shape}")
+        st = t.stride()
+        if W is not None and st[2] != 1:
+            t = t.contiguous()
+            st = t.stride()
+            copied.append(name)
+        ins.append(t)
+        strides += st[:2]
+    if slot_valid.dtype != torch.bool or slot_valid.shape != (NT, K):
+        raise ValueError("composite_tiles: slot_valid must be bool [NT, K]")
+    if not slot_valid.is_contiguous():
+        slot_valid = slot_valid.contiguous()
+        copied.append("slot_valid")
+    ints = []
+    for t, name, shape in ((counts, "counts", (NT,)), (tile_origins, "tile_origins", (NT, 2))):
+        if t.is_floating_point() or t.is_complex() or t.shape != shape:
+            raise ValueError(f"composite_tiles: {name} must be an integer {list(shape)} tensor")
+        if t.dtype not in (torch.int32, torch.int64) or not t.is_contiguous():
+            t = t.to(torch.int32 if t.dtype != torch.int64 else t.dtype).contiguous()
+            copied.append(name)
+        ints.append(t)
+    if not (1 <= P <= MAX_PIXELS):
+        raise ValueError(f"the kernel takes tiles of 1..{MAX_PIXELS} pixels, got {tile}x{tile}")
+    need = tiles_smem_bytes(K)
+    if K < 1 or need > SMEM_OPTIN:
+        raise ValueError(f"composite_tiles: K={K} slots need {need} B of shared memory, "
+                         f"over the {SMEM_OPTIN} B a block may have")
+    tensors = (*ins, slot_valid.view(torch.uint8), *ints)
+    return LaunchArgs(tensors, tuple(t.data_ptr() for t in tensors), tuple(strides),
+                      tuple(copied), ints[0].dtype == torch.int64,
+                      ints[1].dtype == torch.int64, NT, K, P)
 
 
 def composite_tiles(
@@ -51,59 +152,29 @@ def composite_tiles(
     args = (xy, conic, opac, colors, normals, depths, jinv, slot_valid, counts,
             tile_origins)
     consts = (tile, alpha_clamp, alpha_min, t_min, perpix_depth)
-    with torch.no_grad():
-        if xy.device.type == "cpu":
+    if xy.device.type == "cpu":
+        with torch.no_grad():
             return composite_tiles_plain(*args, *consts)
-        return _launch(*args, *consts)
+    return _launch(*args, *consts)  # fresh outputs: no autograd graph either
 
 
 def _launch(xy, conic, opac, colors, normals, depths, jinv, slot_valid, counts,
             tile_origins, tile, alpha_clamp, alpha_min, t_min, perpix_depth):
+    a = launch_args(xy, conic, opac, colors, normals, depths, jinv, slot_valid, counts,
+                    tile_origins, tile)
     dev = xy.device
-    tensors = (xy, conic, opac, colors, normals, depths, jinv, slot_valid, counts,
-               tile_origins)
-    if dev.type != "cuda" or any(t.device != dev for t in tensors):
-        raise ValueError(
-            "composite_tiles takes CPU or CUDA tensors on one device, got "
-            f"{sorted({str(t.device) for t in tensors})}"
-        )
-    NT, K = xy.shape[:2]
-    P = tile * tile
-    floats = {"xy": (xy, (NT, K, 2)), "conic": (conic, (NT, K, 3)), "opac": (opac, (NT, K)),
-              "colors": (colors, (NT, K, 3)), "normals": (normals, (NT, K, 3)),
-              "depths": (depths, (NT, K)), "jinv": (jinv, (NT, K, 10))}
-    for name, (t, shape) in floats.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"composite_tiles: {name} must be float32, got {t.dtype}")
-        if tuple(t.shape) != shape:
-            raise ValueError(f"composite_tiles: {name} has shape {tuple(t.shape)}, want {shape}")
-    if slot_valid.dtype != torch.bool or tuple(slot_valid.shape) != (NT, K):
-        raise ValueError("composite_tiles: slot_valid must be bool [NT, K]")
-    if counts.is_floating_point() or tuple(counts.shape) != (NT,):
-        raise ValueError("composite_tiles: counts must be an integer [NT] tensor")
-    if tile_origins.is_floating_point() or tuple(tile_origins.shape) != (NT, 2):
-        raise ValueError("composite_tiles: tile_origins must be an integer [NT, 2] tensor")
-    if not (1 <= P <= MAX_PIXELS):
-        raise ValueError(f"the kernel takes tiles of 1..{MAX_PIXELS} pixels, got {tile}x{tile}")
-    if K < 1 or K * _RECORD_FLOATS * 4 > _SMEM_LIMIT:
-        raise ValueError(f"K={K} slots x {_RECORD_FLOATS} floats exceed the kernel's "
-                         f"{_SMEM_LIMIT} B of shared memory")
-
-    ins = [t.contiguous() for t, _ in floats.values()]
-    valid_u8 = slot_valid.contiguous().view(torch.uint8)
-    # Counts above K are clipped by the kernel; the clamp keeps an int64
-    # count inside int32.
-    counts_i32 = counts.clamp(0, K).to(torch.int32).contiguous()
-    origins_i32 = tile_origins.to(torch.int32).contiguous()
+    if dev.type != "cuda":
+        raise ValueError(f"composite_tiles takes CPU or CUDA tensors, got {dev}")
+    NT, P = a.NT, a.P
     color = torch.empty((NT, P, 3), dtype=torch.float32, device=dev)
     normal = torch.empty((NT, P, 3), dtype=torch.float32, device=dev)
     depth = torch.empty((NT, P), dtype=torch.float32, device=dev)
     T = torch.empty((NT, P), dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = kernels.load("composite_tiles").composite_tiles(
-        *(t.data_ptr() for t in ins), valid_u8.data_ptr(), counts_i32.data_ptr(),
-        origins_i32.data_ptr(), color.data_ptr(), normal.data_ptr(), depth.data_ptr(),
-        T.data_ptr(), NT, K, tile, int(bool(perpix_depth)),
+        *a.pointers, color.data_ptr(), normal.data_ptr(), depth.data_ptr(), T.data_ptr(),
+        (ctypes.c_int64 * len(a.strides))(*a.strides), NT, a.K, tile,
+        int(bool(perpix_depth)), int(a.counts_i64), int(a.origins_i64),
         float(alpha_clamp), float(alpha_min), float(t_min), stream,
     )
     if err != 0:

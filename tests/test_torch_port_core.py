@@ -398,7 +398,8 @@ def test_port_imports_neither_jax_nor_soar_tpu():
 
     import re
 
-    files = list((REPO / "soar_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    files = list((REPO / "soar_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py",
+                                                              REPO / "composite_ab.py"]
     offenders = []
     for p in files:
         src = p.read_text()

@@ -45,9 +45,10 @@ def test_kernel_library_named_by_source_hash(monkeypatch):
         assert (kernels.BUILD_DIR.parent / src).exists()
         # forward: 5 pointers, 4 ints, 3 floats, the stream; backward: one
         # pointer more (three cotangents in, gfeat out); the tile-list walk:
-        # 10 inputs and 4 outputs, 4 ints, 3 floats, the stream.
+        # 10 inputs and 4 outputs, the float lists' strides, 6 ints, 3
+        # floats, the stream.
         assert len(argtypes) == {"composite_fwd": 13, "composite_bwd": 14,
-                                 "composite_tiles": 22}[name]
+                                 "composite_tiles": 25}[name]
         # Other nvcc flags name another library: a stale build is not reused.
         monkeypatch.setattr(kernels, "NVCC_FLAGS", [*kernels.NVCC_FLAGS, "-lineinfo"])
         assert kernels.library_path(name) != path
@@ -282,6 +283,85 @@ def test_composite_tiles_kernel_at_render_shapes_on_cuda():
     # A CPU tensor beside CUDA tensors is refused, not moved.
     with pytest.raises(ValueError, match="one device"):
         ttiles.composite_tiles(*data[:8], data[8].cpu(), data[9])
+
+
+def _packed_views(data):
+    """The tile lists as column views of one packed [NT, K, 24] array in
+    the layout of ``render/tiled.py::pack_surfels`` (xy 0:2, conic 2:5,
+    opacity 5, depth 6, view_dot 7, jinv 8:18, normal 18:21, colour 21:24),
+    as ``gather_tile_lists`` hands them over."""
+    xy, conic, opac, colors, normals, depths, jinv, slot_valid, counts, origins = data
+    packed = torch.cat([xy, conic, opac[..., None], depths[..., None],
+                        torch.zeros_like(opac)[..., None], jinv, normals, colors], -1)
+    return (packed[..., 0:2], packed[..., 2:5], packed[..., 5], packed[..., 21:24],
+            packed[..., 18:21], packed[..., 6], packed[..., 8:18], slot_valid, counts, origins)
+
+
+TILES_EDGE_CASES = ["packed_views", "int32", "int64", "counts_out_of_range",
+                    "non_prefix_valid", "count_0", "tile_10", "K=61", "K_at_smem_limit"]
+
+
+def _tiles_edge_lists(case):
+    """CUDA tile lists (NT=64, K=96 unless the case says otherwise) for one
+    edge of the tile kernel's strided reads, integer types, slot bound,
+    pixel split and shared-memory records (whole groups of 8 slots)."""
+    NT, K = 64, 96
+    if case == "K=61":
+        K = 61
+    elif case == "K_at_smem_limit":
+        NT, K = 4, tbc.SMEM_OPTIN // ttiles.tiles_smem_bytes(8) * 8
+    tile = 10 if case == "tile_10" else 16
+    rng = np.random.RandomState(31)
+    counts = rng.randint(0, K + 1, NT)
+    if case == "counts_out_of_range":
+        counts[::3] = K + rng.randint(1, 1000, len(counts[::3]))
+        counts[1::3] = -rng.randint(1, 1000, len(counts[1::3]))
+    if case == "count_0":
+        counts[::2] = 0
+    data = [t(a).cuda() for a in make_gathered(NT=NT, K=K, tile=tile, seed=32, counts=counts)]
+    k = torch.arange(K, device="cuda")[None]
+    if case == "non_prefix_valid":  # as slot_valid & front from the occlusion pass
+        data[7] &= (k % 3 == 0) & (k < K - 5)
+    if case == "count_0":  # a tile with a count but no valid slot below it
+        data[7][1] = False
+    if case in ("packed_views", "int64", "counts_out_of_range"):
+        data[8], data[9] = data[8].long(), data[9].long()
+    if case == "packed_views":
+        data = list(_packed_views(data))
+    return data, tile
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("perpix_depth", [True, False])
+@pytest.mark.parametrize("case", TILES_EDGE_CASES)
+def test_composite_tiles_kernel_edge_cases_on_cuda(case, perpix_depth):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    data, tile = _tiles_edge_lists(case)
+    if case == "packed_views":  # read through the views' strides, not copied
+        assert ttiles.launch_args(*data, tile=tile).copied == ()
+    before = ttiles.composite_tiles.launches
+    got = ttiles.composite_tiles(*data, tile=tile, perpix_depth=perpix_depth)
+    again = ttiles.composite_tiles(*data, tile=tile, perpix_depth=perpix_depth)
+    torch.cuda.synchronize()
+    assert ttiles.composite_tiles.launches == before + 2
+    for g, g2 in zip(got, again):  # two launches bit-equal
+        assert torch.equal(g, g2)
+    want = tcomp.composite_tiles_plain(*data, tile=tile, perpix_depth=perpix_depth)
+    # As at the render's shapes: 1e-5, with 1% of the elements allowed a
+    # T-cutoff flip, and none beyond 1e-2.
+    NT = data[0].shape[0]
+    for g, w, name in zip(got, want, ("color", "normal", "depth", "T")):
+        assert g.shape == w.shape == (NT, tile * tile, 3)[:w.dim()]
+        assert_close_share(g, w, 1e-5, 0.01, msg=f"{case} {name}")
+        assert_close_share(g, w, 1e-2, 0.0, msg=f"{case} {name}")
+    K = data[0].shape[1]
+    k = torch.arange(K, device="cuda")[None]
+    empty = ~(data[7] & (k < data[8][:, None])).any(1)  # no valid slot below the count
+    if case == "count_0":
+        assert bool(empty[::2].all()) and bool(empty[1])
+    assert bool((got[3][empty] == 1).all()) and bool((got[0][empty] == 0).all())
+    assert bool((got[2][empty] == 0).all()) and bool((got[1][empty] == 0).all())
 
 
 def test_plain_backward_matches_finite_differences():

@@ -149,3 +149,110 @@ def test_tile_lists_of_a_rendered_view(K):
     assert float(m.float().mean()) > 0.05
     d_img = untile(depth[..., None], 1, ntx, nty, cfg.tile, H, W)[..., 0]
     assert_close(d_img[m], out.depth[m], 1e-4, msg="depth image inside the mask")
+
+
+# ------------------------------------------------- the kernel's launch arguments
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_launch_args_take_the_gathered_views_without_a_copy(reverse):
+    """``gather_tile_lists`` hands out column views of one packed
+    [NT, K, 24] gather (3 colour channels); the kernel reads them through
+    their own strides, so no input is copied: the pointers handed over are
+    the views' own, and so are the strides (24 between slots)."""
+    g, cam = _small_view()
+    size = (64, 80)
+    cfg = RasterConfig(max_per_tile=32, composite="plain")
+    lists, (ntx, nty), _ = ttiled.gather_tile_lists(preprocess(g, cam, size, cfg), size, cfg,
+                                                    reverse=reverse)
+    a = ttiles.launch_args(*lists, tile=cfg.tile)
+    assert a.copied == ()
+    assert a.pointers == tuple(x.data_ptr() for x in lists)
+    assert (a.NT, a.K, a.P) == (ntx * nty, 32, 256)
+    floats = lists[:7]
+    assert a.strides == tuple(s for x in floats for s in x.stride()[:2])
+    assert a.strides == (32 * 24, 24) * 7  # every list strides by the packed row
+    assert all(x.stride()[2:] in ((), (1,)) for x in floats)
+    assert a.counts_i64 and a.origins_i64  # the binning's int64, read as they are
+    assert a.tensors[7].dtype == torch.uint8
+
+
+def _contiguous_lists(NT=3, K=8):
+    data = make_gathered(NT=NT, K=K, seed=7, counts=[8, 3, 0])
+    return [t(x) for x in data]
+
+
+# One input of each kind that the kernel cannot read as it is, and how.
+def _stride_2(x):
+    return torch.stack([x, torch.zeros_like(x)], -1)[..., 0]
+
+
+def _planar(x):  # [W, NT, K] storage: stride NT*K over W
+    return x.permute(2, 0, 1).contiguous().permute(1, 2, 0)
+
+
+RESTRIDED = {
+    "xy": _stride_2,
+    "conic": _planar,
+    "colors": _stride_2,
+    "normals": _planar,
+    "jinv": _stride_2,
+    "slot_valid": lambda x: x.t().contiguous().t(),
+    "counts": lambda x: x.to(torch.int16),
+    "tile_origins": lambda x: x.t().contiguous().t(),
+}
+ARG_NAMES = ("xy", "conic", "opac", "colors", "normals", "depths", "jinv", "slot_valid",
+             "counts", "tile_origins")
+
+
+@pytest.mark.parametrize("name", sorted(RESTRIDED))
+def test_launch_args_copy_only_the_input_the_kernel_cannot_read(name):
+    """An [NT, K, W] list without unit stride over W (or a non-contiguous
+    mask, origins, or counts of another integer type) is copied, and only
+    that input; an [NT, K] list with any slot stride is taken as it is."""
+    data = _contiguous_lists()
+    i = ARG_NAMES.index(name)
+    data[i] = RESTRIDED[name](data[i])
+    if name in ("xy", "conic", "colors", "normals", "jinv"):
+        assert data[i].stride(2) != 1
+    else:
+        assert not data[i].is_contiguous() or data[i].dtype == torch.int16
+    # the [NT, K] lists as columns of a wider array: read through their strides
+    wide = torch.stack([data[2], data[5], data[5]], -1)
+    data[2], data[5] = wide[..., 0], wide[..., 1]
+    a = ttiles.launch_args(*data, tile=16)
+    assert a.copied == (name,)
+    for j, (x, p) in enumerate(zip(data, a.pointers)):
+        assert (p == x.data_ptr()) == (j != i), ARG_NAMES[j]
+    assert torch.equal(a.tensors[i].to(data[i].dtype if name != "slot_valid" else torch.uint8),
+                       data[i] if name != "slot_valid" else data[i].to(torch.uint8))
+    assert a.strides[4:6] == a.strides[10:12] == (8 * 3, 3)
+    assert a.tensors[8].dtype in (torch.int32, torch.int64)
+    # The wrapper's plain version on these inputs is the contiguous inputs'.
+    want = tcomp.composite_tiles_plain(*_contiguous_lists())
+    for g_, w in zip(ttiles.composite_tiles(*data), want):
+        assert torch.equal(g_, w)
+
+
+@pytest.mark.parametrize("K", [96, 64])
+def test_tiles_smem_footprint_admits_render_shapes_and_refuses_one_slot_more(K):
+    """``launch_args`` holds the kernel's shared memory (one 20-float record
+    a slot, K rounded up to whole groups of 8 slots, ``tiles_smem_bytes``)
+    against the opt-in limit before any launch: the render's K=96 and the
+    training step's K=64 pass, the largest K that fits passes, one slot more
+    raises ValueError."""
+    from soar_tpu_torch.render.block_composite import SMEM_OPTIN
+
+    def args(K):
+        shapes = [(1, K, 2), (1, K, 3), (1, K), (1, K, 3), (1, K, 3), (1, K), (1, K, 10)]
+        floats = [torch.zeros(s) for s in shapes]
+        return ttiles.launch_args(*floats, torch.ones(1, K, dtype=torch.bool),
+                                  torch.tensor([K]), torch.zeros(1, 2, dtype=torch.int64))
+
+    assert ttiles.tiles_smem_bytes(K) == 80 * K
+    assert ttiles.tiles_smem_bytes(K - 7) == 80 * K  # whole groups of 8 slots
+    assert args(K).K == K
+    largest = SMEM_OPTIN // ttiles.tiles_smem_bytes(8) * 8
+    assert args(largest).K == largest == 2904
+    with pytest.raises(ValueError, match="shared memory"):
+        args(largest + 1)
