@@ -51,11 +51,25 @@
    the kernel step's losses and gradients against the plain composite's.
    The last warm-up step's composite launches are recorded and replayed
    as the view's are (backward: two launches bit-equal).
-9. Runs the training CLI (``--synthetic --stage both --steps 3``), the
+9. Drives the guided training step (``[guided train]``): the same scene,
+   views and raster, stage 1 from its first step, with
+   ``guidance.build.build_guidance("imagedream", mock=True)`` at full shape
+   in bf16 (UNet 893,131,204 and VAE encoder 34,163,664 parameters,
+   checked) and seeded ip tokens [16, 1024] in the batch.  2 warm-up and 5
+   timed steps, counted (13 forward and 8 backward launches a step), with
+   finite SDS metrics and no gradient on a guidance weight; a profiled
+   step and its peak memory; the UNet's and the VAE encoder's device ms
+   inside a synced step; no op on the CPU; the SDS term's reach to the
+   colours and the occ hook (SDS pull at occ high at most half that at occ
+   low); the kernel step against the plain one with float32 networks (loss
+   terms 1e-3 relative, gradients as in 8); one stage-0 step.
+10. Runs the training CLI (``--synthetic --stage both --steps 3``), the
    turntable CLI on its checkpoint, and the mesh-export CLI on it (default
    flags with and without ``--field-attrs``), reads the OBJs back, and
-   checks that no op of the density field computes on the CPU.
-10. Prints the wall seconds of each phase (``[time]``), a
+   checks that no op of the density field computes on the CPU; then the
+   guided CLI (``--guidance mvdream --mock-guidance --stage both --steps 3
+   --sds-start 0``).
+11. Prints the wall seconds of each phase (``[time]``), a
    ``{"kernels": [...]}`` line (the block composites with the summed
    device ms and bound of their recorded main-path launches,
    ``main_path_ms`` and ``main_path_bound_ms``, and their launches per step
@@ -1294,6 +1308,378 @@ def run_training(ds, params, model, device):
     }
 
 
+# The guided step: the full-shape ImageDream UNet (ipmv) and the SD VAE
+# encoder, by their checkpoints' key manifests.
+UNET_PARAMS_IPMV = 893_131_204
+VAE_PARAMS = 34_163_664
+# The guided step's loss terms, kernel composite against plain: the SDS loss
+# sees the renders through the VAE encoder and the UNet's target, so a pixel
+# whose stop slot flips moves it more than the explicit losses (1e-4).
+GUIDED_LOSS_RTOL = 1e-3
+# The bf16 guidance against the float32 one with the same weights (the bf16
+# values, widened) on the same render, draws and step: the SDS loss and its
+# gradient on the render, relative.  About 3x and 2.3x the spread measured on
+# an H100 at the full shape (1.62e-4 and 4.27e-2; PERF.md section 6).
+GUIDED_BF16_LOSS_RTOL = 5e-4
+GUIDED_BF16_GRAD_RTOL = 0.1
+# exp(-3 occ) at occ logits -10 / +10 (occ ~0 / ~1) scales the SDS pull by
+# ~1 / ~0.05; the check asks for a 2x shrink, as tests/test_sds_train.py.
+OCC_HOOK_SHRINK = 2.0
+
+
+class module_spans:
+    """CUDA events around a module's forward (and backward, ``backward=
+    True``) in every call while the ``with`` block runs: ``ms()`` gives the
+    device ms of each span, for a step ended by a synchronize."""
+
+    def __init__(self, module, backward=False):
+        self.module, self.backward, self.events = module, backward, {"forward": []}
+        if backward:
+            self.events["backward"] = []
+
+    def _pair(self, name):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        self.events[name].append(ev)
+        return ev
+
+    def __enter__(self):
+        m = self.module
+
+        def pre(mod, args):
+            self._pair("forward")[0].record()
+
+        def post(mod, args, out):
+            self.events["forward"][-1][1].record()
+
+        self.handles = [m.register_forward_pre_hook(pre), m.register_forward_hook(post)]
+        if self.backward:
+            def bpre(mod, gout):
+                self._pair("backward")[0].record()
+
+            def bpost(mod, gin, gout):
+                self.events["backward"][-1][1].record()
+
+            self.handles += [m.register_full_backward_pre_hook(bpre),
+                             m.register_full_backward_hook(bpost)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in self.events.items()}
+
+
+def run_guided_training(ds, params, model, device):
+    """The full-width training step with SDS guidance: the scene, batches,
+    views and raster of :func:`train_setup`, stage 1 (the RGB composite
+    guides) with ``sds_start`` 0, and ``build_guidance("imagedream", mock=
+    True)`` at full shape in bf16 with seeded ip tokens [16, 1024] in every
+    batch.  2 warm-up steps and 5 timed, counted; a profiled step, the
+    UNet's and the VAE's device ms inside a synced step, the host-op check,
+    the SDS term's reach (colours' gradient with and without it, and the occ
+    hook), the kernel step against the plain one with float32 networks, and
+    one stage-0 step."""
+    import dataclasses
+
+    from soar_tpu_torch.guidance.build import build_guidance
+    from soar_tpu_torch.render import block_composite
+    from soar_tpu_torch.train.config import LossWeights, StageConfig, stage1_config
+    from soar_tpu_torch.train.trainer import make_train_step, sample_step_draws
+
+    bc = block_composite.composite_block
+    ts = train_setup(ds, params, model, device)
+    cfg, raster, sizes, opt = ts.cfg, ts.raster, ts.sizes, ts.opt
+    state = ts.state
+    stage = stage1_config()
+    check(stage.sds_start == 0, "stage 1 guides from its first step")
+    gen_t = torch.Generator(device=device).manual_seed(100)
+    with timed("guided: build"):
+        g = build_guidance("imagedream", stage, generator=gen_t, mock=True, dtype=torch.bfloat16,
+                           device=device)
+        torch.cuda.synchronize()
+    n_unet = sum(p.numel() for p in g.unet.parameters())
+    n_vae = sum(p.numel() for p in g.vae.parameters())
+    check((n_unet, n_vae) == (UNET_PARAMS_IPMV, VAE_PARAMS),
+          f"guidance parameters {n_unet}, {n_vae}, want {UNET_PARAMS_IPMV}, {VAE_PARAMS}")
+    check(all(p.dtype == torch.bfloat16 and p.device.type == "cuda" and not p.requires_grad
+              for m in (g.unet, g.vae) for p in m.parameters()),
+          "guidance weights not frozen bf16 on the card")
+    ref_ip = torch.randn(g.shapes.ip_shape, generator=gen_t, device=device)
+    batches = [dict(b, ref_ip=ref_ip) for b in ts.batches]
+    state.step = 1
+    step = make_train_step(model, cfg, stage, opt, raster=raster, use_explicit=False,
+                           has_normals=True, guidance_fn=g, **sizes)
+    draw_gen = torch.Generator(device=device).manual_seed(1)
+    frames = np.random.RandomState(2)
+
+    def one_step(fn=step):
+        draws = sample_step_draws(draw_gen, cfg, latent_size=g.latent_size)
+        return fn(state, batches[frames.randint(len(batches))], draws)
+
+    with timed("guided: 2 warm-up steps"):
+        for _ in range(WARMUP_STEPS):
+            one_step()
+        torch.cuda.synchronize()
+
+    # ---- the main path, counted: launch counters 0 just before, read after
+    bc.launches = 0
+    bc.bwd_launches = 0
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(TRAIN_STEPS + 1)]
+    ev[0].record()
+    metrics = []
+    with timed("guided: 5 timed steps"):
+        for i in range(TRAIN_STEPS):
+            metrics.append(one_step()[1])
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+    fwd, bwd = bc.launches, bc.bwd_launches
+    step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TRAIN_STEPS)]
+    ms = sum(step_ms) / TRAIN_STEPS
+    check(fwd == FWD_PER_STEP * TRAIN_STEPS,
+          f"guided: composite_fwd launched {fwd} times, want {FWD_PER_STEP * TRAIN_STEPS}")
+    check(bwd == BWD_PER_STEP * TRAIN_STEPS,
+          f"guided: composite_bwd launched {bwd} times, want {BWD_PER_STEP * TRAIN_STEPS}")
+    rows = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for r in rows:
+        check("loss_sds" in r and "sds_grad_norm" in r, f"guided: no SDS metrics in {sorted(r)}")
+        check(all(np.isfinite(v) for v in r.values()), f"guided: a loss is not finite: {r}")
+    check(all(p.grad is None for m in (g.unet, g.vae) for p in m.parameters()),
+          "guided: a guidance weight got a gradient")
+    lat = g.latent_size
+    print(f"[guided train] imagedream (mock, bf16; UNet {n_unet:,} parameters, VAE encoder "
+          f"{n_vae:,}), stage 1, 4 gen views 256x256 -> 4x{lat}x{lat} latents, GT + normal "
+          f"F/B 512x512, K={TRAIN_K}: {ms:.3f} ms/step over {TRAIN_STEPS} steps "
+          f"({[round(x, 3) for x in step_ms]} ms) after {WARMUP_STEPS} warm-up; launches fwd "
+          f"{fwd} ({fwd // TRAIN_STEPS}/step), bwd {bwd} ({bwd // TRAIN_STEPS}/step)")
+    print("[guided train] last step's losses " + json.dumps(
+        {k: round(v, 6) for k, v in rows[-1].items()}))
+
+    with timed("guided: profiled step"):
+        torch.cuda.reset_peak_memory_stats()
+        prof = profile_view(one_step)
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    busy = prof["device_busy_ms"]
+    check(busy > 0 and prof["composite_fwd_ms"] > 0 and prof["composite_bwd_ms"] > 0,
+          "guided: the profiler saw no device time in a kernel")
+    prof["idle_share"] = 1.0 - busy / ms
+    with timed("guided: host-op step"):
+        cpu_compute, cpu_moves, n_ops, n_syncs = host_ops(one_step)
+    check(not cpu_compute, f"guided: an op of the step computed on the CPU: {cpu_compute}")
+    check(n_syncs == 0, f"guided: {n_syncs} host syncs in a step")
+
+    # ---- the UNet's forward and the VAE's forward + backward inside a
+    # synced step (CUDA events from module hooks); their inputs are kept
+    # and each is profiled alone below
+    spans, inputs = [], {}
+    def keep(name):
+        def hook(mod, args):
+            inputs.setdefault(name, args)  # returns None: the inputs stay as they are
+        return hook
+
+    hooks = [m.register_forward_pre_hook(keep(name))
+             for name, m in (("unet", g.unet), ("vae", g.vae))]
+    with timed("guided: 3 synced steps"):
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with module_spans(g.unet) as su, module_spans(g.vae, backward=True) as sv:
+                one_step()
+                torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+            u, v = su.ms(), sv.ms()
+            spans.append({"step_wall_ms": wall, "unet_ms": u["forward"],
+                          "vae_fwd_ms": v["forward"], "vae_bwd_ms": v["backward"]})
+    for h in hooks:
+        h.remove()
+    span = {k: float(np.median([s[k] for s in spans])) for k in spans[0]}
+    check(span["unet_ms"] > 0 and span["vae_fwd_ms"] > 0 and span["vae_bwd_ms"] > 0,
+          f"guided: module spans {span}")
+    x_vae, eps_vae = (a.detach() for a in inputs["vae"])
+
+    def vae_fwd_bwd():
+        x = x_vae.clone().requires_grad_(True)
+        g.vae(x, eps_vae).float().sum().backward()
+
+    with timed("guided: UNet and VAE profiled alone"), torch.no_grad():
+        prof_unet = profile_view(lambda: g.unet(*inputs["unet"]))
+    with timed("guided: UNet and VAE profiled alone"):
+        prof_vae = profile_view(vae_fwd_bwd)
+    del inputs, x_vae, eps_vae
+    print(f"[guided train] profile of one step: device busy {busy:.3f} ms in "
+          f"{prof['device_kernels']} device ops (composite_fwd {prof['composite_fwd_ms']:.3f} "
+          f"ms, composite_bwd {prof['composite_bwd_ms']:.3f} ms), idle share "
+          f"{prof['idle_share']:.4f} of {ms:.3f} ms; peak memory {peak_gib:.3f} GiB; {n_ops} "
+          f"aten ops, {n_syncs} host syncs, none computed on the CPU; ops with a CPU result "
+          f"(transfers) {cpu_moves}")
+    print(f"[guided train] synced step (median of 3): wall {span['step_wall_ms']:.3f} ms, UNet "
+          f"forward (2 x 4 views, CFG) {span['unet_ms']:.3f} ms, VAE encoder forward "
+          f"{span['vae_fwd_ms']:.3f} ms + backward {span['vae_bwd_ms']:.3f} ms (device ms "
+          f"between CUDA events from module hooks)")
+    for name, pr in (("UNet forward", prof_unet), ("VAE encoder forward + backward", prof_vae)):
+        print(f"[guided train] {name} alone on the step's inputs: device busy "
+              f"{pr['device_busy_ms']:.3f} ms in {pr['device_kernels']} device ops, wall "
+              f"{pr['profiled_wall_ms']:.3f} ms")
+    for row in prof["top"]:
+        print(f"    {row['ms']:9.4f} ms  x{row['calls']:<5d} {row['name']}")
+
+    # ---- the SDS term reaches the colours, and exp(-3 occ) scales it.  The
+    # explicit avatar (colours as parameters; the field-driven step gives
+    # them no gradient), one draw for every pass.
+    def colors_grad(stage_c):
+        fn = make_train_step(model, cfg, stage_c, opt, raster=raster, use_explicit=True,
+                             has_normals=True, guidance_fn=g.for_stage(stage_c), **sizes)
+        opt.zero_grad()
+        loss, _, _ = fn.loss_fn(state.params, state.bg_params, batches[0], draws_c, state.step)
+        loss.backward()
+        out = state.params.colors.grad.detach().clone()
+        opt.zero_grad()
+        return out
+
+    draws_c = sample_step_draws(draw_gen, cfg, latent_size=g.latent_size)
+    with timed("guided: SDS and occ-hook checks"):
+        g_sds = colors_grad(stage)
+        g_nosds = colors_grad(dataclasses.replace(
+            stage, loss=dataclasses.replace(stage.loss, sds=0.0)))
+        sds_share = float((g_sds - g_nosds).norm() / g_nosds.norm().clamp_min(1e-30))
+        check(not torch.equal(g_sds, g_nosds) and sds_share > 0,
+              "guided: the SDS term does not reach the colours")
+        only_sds = dataclasses.replace(stage, loss=LossWeights(
+            sds=1.0, recon=0.0, mask=0.0, normal_F=0.0, normal_B=0.0, normal_mask=0.0,
+            normal_consistency=0.0, curv=0.0, scales=0.0, delta=0.0, occ=1.0))
+        occ0 = state.params.occ.detach().clone()
+        pull = {}
+        try:
+            for name, val in (("low", -10.0), ("high", 10.0)):
+                with torch.no_grad():
+                    state.params.occ.fill_(val)
+                pull[name] = float(colors_grad(only_sds).norm())
+        finally:
+            with torch.no_grad():
+                state.params.occ.copy_(occ0)
+    check(pull["low"] > 0 and pull["high"] * OCC_HOOK_SHRINK <= pull["low"],
+          f"guided: occ hook: SDS pull on the colours {pull} (occ high / low)")
+    print(f"[guided train] the SDS term's share of the colours' gradient (explicit avatar, "
+          f"stage-1 weights): {sds_share:.4g} relative L2; occ hook: SDS-only pull on the "
+          f"colours {pull['high']:.6g} at occ logit +10 against {pull['low']:.6g} at -10 "
+          f"({pull['low'] / max(pull['high'], 1e-30):.2f}x)")
+
+    # ---- kernel against plain composite, float32 networks (the bf16
+    # networks' weights and text embeddings, widened), same draws
+    with timed("guided: kernel vs plain step (f32 networks)"):
+        g32 = build_guidance("imagedream", stage,
+                             generator=torch.Generator(device=device).manual_seed(100),
+                             text_embeddings=g.guidance.text_embeddings,
+                             mock=True, dtype=torch.float32, device=device)
+        g32.unet.load_state_dict(g.unet.state_dict())
+        g32.vae.load_state_dict(g.vae.state_dict())
+        seen = {}
+
+        def g32_seen(inp, c2w, step_, draws_, **kw):
+            seen.update(args=(inp.detach(), c2w, step_, draws_), kw={
+                k: v.detach() if torch.is_tensor(v) else v for k, v in kw.items()})
+            return g32(inp, c2w, step_, draws_, **kw)
+
+        kern = make_train_step(model, cfg, stage, opt, raster=raster, use_explicit=False,
+                               has_normals=True, guidance_fn=g32_seen, **sizes)
+        plain = make_train_step(model, cfg, stage, opt, use_explicit=False, has_normals=True,
+                                raster=dataclasses.replace(raster, composite="plain",
+                                                           composite_dtype="f32"),
+                                guidance_fn=g32, **sizes)
+        draws = sample_step_draws(draw_gen, cfg, latent_size=g.latent_size)
+
+        def grads_of(fn):
+            opt.zero_grad()
+            counts = (bc.launches, bc.bwd_launches)
+            loss, m, _ = fn.loss_fn(state.params, state.bg_params, batches[0], draws,
+                                    state.step)
+            loss.backward()
+            torch.cuda.synchronize()
+            grads = {k: p.grad.detach().clone() for k, p in state.params.named_parameters()
+                     if p.grad is not None}
+            return ({k: float(v.detach()) for k, v in m.items()}, grads,
+                    (bc.launches - counts[0], bc.bwd_launches - counts[1]))
+
+        mk, gk, launched_k = grads_of(kern)
+        mp, gp, launched_p = grads_of(plain)
+        opt.zero_grad()
+
+    # ---- the bf16 guidance against the float32 one on the kernel step's
+    # render, draws and step: what bf16 computing costs the SDS signal
+    def sds_of(gfn):
+        inp, c2w, step_, draws_ = seen["args"]
+        x = inp.clone().requires_grad_(True)
+        out = gfn(x, c2w, step_, draws_, **seen["kw"])
+        out["loss_sds"].backward()
+        return float(out["loss_sds"].detach()), x.grad
+
+    with timed("guided: bf16 vs f32 guidance"):
+        l16, d16 = sds_of(g)
+        l32, d32 = sds_of(g32)
+        bf16_spread = {"loss_sds": abs(l16 - l32) / max(abs(l32), 1e-30),
+                       "input_grad": float((d16 - d32).norm() / d32.norm().clamp_min(1e-30))}
+        check(all(p.grad is None for m in (g.unet, g.vae, g32.unet, g32.vae)
+                  for p in m.parameters()), "guided bf16 vs f32: a guidance weight got a gradient")
+        del g32, g32_seen, kern, plain, seen, d16, d32
+        torch.cuda.empty_cache()
+    print(f"[guided train] bf16 vs f32 guidance (same weights, render, draws and step): "
+          f"loss_sds {l16:.6g} vs {l32:.6g}, rel diff {bf16_spread['loss_sds']:.4g} (bound "
+          f"{GUIDED_BF16_LOSS_RTOL}); gradient on the render rel L2 diff "
+          f"{bf16_spread['input_grad']:.4g} (bound {GUIDED_BF16_GRAD_RTOL})")
+    check(np.isfinite(l16) and np.isfinite(l32) and l32 > 0,
+          f"guided bf16 vs f32: loss_sds {l16}, {l32}")
+    check(bf16_spread["loss_sds"] <= GUIDED_BF16_LOSS_RTOL,
+          f"guided bf16 vs f32: loss_sds differs by {bf16_spread['loss_sds']:.4g}")
+    check(bf16_spread["input_grad"] <= GUIDED_BF16_GRAD_RTOL,
+          f"guided bf16 vs f32: the render's gradient differs by {bf16_spread['input_grad']:.4g}")
+    check(launched_k == (FWD_PER_STEP, BWD_PER_STEP) and launched_p == (0, 0),
+          f"guided kernel vs plain: launches {launched_k} and {launched_p}")
+    check(set(gk) == set(gp) and "loss_sds" in mk,
+          f"guided kernel vs plain: grads of {sorted(gk)} vs {sorted(gp)}")
+    loss_rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp}
+    grad_rel = {k: float((gk[k] - gp[k]).norm() / gp[k].norm().clamp_min(1e-30)) for k in gp}
+    print("[guided train] kernel vs plain step (f32 networks, same state and draws): loss "
+          "terms rel diff " + json.dumps({k: float(f"{v:.3g}") for k, v in loss_rel.items()}))
+    print("[guided train] gradient rel L2 diff per leaf " + json.dumps(
+        {k: float(f"{v:.3g}") for k, v in grad_rel.items()}))
+    for k, v in loss_rel.items():
+        if not k.startswith("raster_"):
+            check(v <= GUIDED_LOSS_RTOL, f"guided kernel vs plain: {k} differs by {v:.3g}")
+    for k, v in grad_rel.items():
+        tol = STEP_GRAD_TOL_BF16 if k.endswith("encoding") else STEP_GRAD_TOL
+        check(v <= tol, f"guided kernel vs plain: grad of {k} differs by {v:.3g} "
+              f"(tolerance {tol})")
+
+    # ---- one stage-0 step: the rendered normals guide, normal_F the reference
+    stage0 = StageConfig(sds_start=0)
+    step0 = make_train_step(model, cfg, stage0, opt, raster=raster, use_explicit=False,
+                            has_normals=True, guidance_fn=g.for_stage(stage0), **sizes)
+    counts = (bc.launches, bc.bwd_launches)
+    with timed("guided: stage-0 step"):
+        m0 = {k: float(v) for k, v in one_step(step0)[1].items()}
+        torch.cuda.synchronize()
+    launched0 = (bc.launches - counts[0], bc.bwd_launches - counts[1])
+    check(launched0 == (FWD_PER_STEP, BWD_PER_STEP), f"guided stage 0: launches {launched0}")
+    check("loss_sds" in m0 and all(np.isfinite(v) for v in m0.values()),
+          f"guided stage 0: losses {m0}")
+    print(f"[guided train] stage-0 step (normals guide): loss_sds {m0['loss_sds']:.6g}, "
+          f"sds_grad_norm {m0['sds_grad_norm']:.6g}, loss {m0['loss']:.6g}; launches {launched0}")
+    return {
+        "ms_per_step": ms, "step_ms": step_ms, "launches_fwd": fwd, "launches_bwd": bwd,
+        "losses": rows, "peak_memory_gib": peak_gib, "profile": prof,
+        "aten_ops_per_step": n_ops, "host_syncs_per_step": n_syncs,
+        "cpu_transfers_per_step": cpu_moves, "synced_step_spans_ms": span,
+        "profile_unet_alone": prof_unet, "profile_vae_fwd_bwd_alone": prof_vae,
+        "unet_params": n_unet, "vae_params": n_vae, "sds_share_colors_grad": sds_share,
+        "occ_hook_pull": pull, "kernel_vs_plain": {"loss_rel": loss_rel,
+                                                   "grad_rel_l2": grad_rel},
+        "bf16_vs_f32": bf16_spread,
+        "stage0_losses": m0,
+    }
+
+
 def read_obj_counts(path):
     """(vertices, faces) of an OBJ, through the port's loader."""
     from soar_tpu_torch.io.objmesh import load_obj_mesh
@@ -1423,7 +1809,23 @@ def run_cli(device):
               f"rows and {len(pngs)} pngs written")
         with timed("export"):
             export = run_export(os.path.join(d, "stage1"), d, device)
-    return {"train_s": train_s, "render_rot_s": total_s - train_s, "export": export}
+        # SDS guidance from the CLI: mvdream with full-shape random networks.
+        gd = os.path.join(d, "guided")
+        t0 = time.perf_counter()
+        train.main(["--synthetic", "--guidance", "mvdream", "--mock-guidance", "--stage", "both",
+                    "--steps", "3", "--sds-start", "0", "--out", gd, "--log-every", "1",
+                    "--device", device])
+        guided_s = time.perf_counter() - t0
+        rows = [json.loads(line) for line in open(os.path.join(gd, "metrics.jsonl"))]
+        guided_rows = [r for r in rows if "loss_sds" in r]
+        check(len(rows) == 6 and len(guided_rows) == 4
+              and all(np.isfinite(r["loss"]) and np.isfinite(r["loss_sds"]) for r in guided_rows),
+              f"cli guided: metrics rows {rows}")
+        print(f"[cli] train --synthetic --guidance mvdream --mock-guidance --stage both --steps 3 "
+              f"--sds-start 0: {guided_s:.2f} s; 6 metrics rows, 4 with loss_sds "
+              f"{[round(r['loss_sds'], 5) for r in guided_rows]}")
+    return {"train_s": train_s, "render_rot_s": total_s - train_s, "export": export,
+            "guided_train_s": guided_s, "guided_rows": rows}
 
 
 def ptxas_summary(log):
@@ -1533,6 +1935,7 @@ def main():
     with timed("train: dataset"):
         ds_train = train_dataset(ds)
     tr = run_training(ds_train, params, model, "cuda")
+    guided = run_guided_training(ds_train, params, model, "cuda")
     with timed("cli and export"):
         cli = run_cli("cuda")
 
@@ -1547,6 +1950,7 @@ def main():
         "replaces": "soar_tpu/render/block_composite.py:205",
         "launches": tr["launches_fwd"],
         "launches_turntable": sl["launches"],
+        "launches_guided_train": guided["launches_fwd"],
         "max_abs_err": max(c["max_abs_err"] for c in comp),
         "ms": comp[0]["ms"],
         "plain_ms": comp[0]["plain_ms"],
@@ -1566,6 +1970,7 @@ def main():
         "source": "soar_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "soar_tpu/render/block_composite.py:226",
         "launches": tr["launches_bwd"],
+        "launches_guided_train": guided["launches_bwd"],
         "max_abs_err": max(c["max_abs_err"] for c in comp_bwd),
         "ms": comp_bwd[0]["ms"],
         "plain_ms": comp_bwd[0]["plain_ms"],
@@ -1603,7 +2008,8 @@ def main():
     print("[time] wall s per phase: " + ", ".join(f"{k} {v:.2f}" for k, v in WALL_S.items()))
     report = {"card": info, "ptxas": ptxas, "kernels": comp, "kernels_bwd": comp_bwd,
               "kernels_tiles": comp_tiles, "slice": sl, "tile_lists": tl, "oracle_probe": probe,
-              "export_full": export_full, "training": tr, "cli": cli, "wall_s": WALL_S}
+              "export_full": export_full, "training": tr, "guided_training": guided, "cli": cli,
+              "wall_s": WALL_S}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

@@ -1,12 +1,16 @@
-"""Two-stage training CLI (port of ``soar_tpu.cli.train``, guidance-free).
+"""Two-stage training CLI (port of ``soar_tpu.cli.train``).
 
     python -m soar_tpu_torch.cli.train --synthetic --steps 3 [--device cpu]
+    python -m soar_tpu_torch.cli.train --synthetic --guidance mvdream --mock-guidance
 
 Stage 0 supervises geometry (normals), stage 1 texture (RGB); stage 1
 starts from the stage-0 parameters with a fresh optimizer, and each stage
 ends with a checkpoint in ``<out>/stage<K>``.  ``--synthetic`` trains the
-procedural fixture (no download).  The flags and defaults are the JAX
-CLI's; those of parts not ported yet (SDS guidance, LPIPS, YAML configs,
+procedural fixture (no download).  ``--guidance mvdream --mock-guidance``
+adds the SDS loss after each stage's ``sds_start``, with random full-shape
+networks and text embeddings.  The flags and defaults are the JAX CLI's;
+those of parts not ported yet (ImageDream's image prompt, prompt embeddings
+and with them checkpoint guidance, split SDS, LPIPS, YAML configs,
 reference checkpoints, real captures, multi-device, traces, wandb) stop
 with an error instead of being ignored, and the flags that only shape a
 real-capture run (``--smpl-model``, ``--num-subdiv``, ``--gen-res``) are not
@@ -25,7 +29,10 @@ NOT_PORTED = {
     "config": "YAML configs",
     "dataroot": "real-capture loading",
     "import_ckpt": "reference .ckpt import",
-    "mock_guidance": "SDS guidance",
+    "prompt": "prompt processing",
+    "prompt_embeddings": "prompt processing",
+    "clip_model_dir": "prompt processing",
+    "guidance_ckpt": "checkpoint guidance, with the prompt embeddings it needs,",
     "lpips_weights": "LPIPS",
     "multichip": "multi-device training",
     "trace_steps": "profiler traces",
@@ -67,12 +74,26 @@ def main(argv=None):
     ap.add_argument("--lpips-weights", type=str, default=None)
     ap.add_argument("--trace-steps", type=int, default=0)
     ap.add_argument("--guidance", type=str, default=None,
-                    choices=["none", "imagedream", "mvdream"])
-    ap.add_argument("--mock-guidance", action="store_true")
+                    choices=["none", "imagedream", "mvdream"],
+                    help="multi-view SDS guidance (mvdream: text-conditioned; imagedream "
+                    "arrives with the next slice)")
+    ap.add_argument("--prompt", type=str, default=None)
+    ap.add_argument("--prompt-embeddings", type=str, default=None)
+    ap.add_argument("--clip-model-dir", type=str, default=None)
+    ap.add_argument("--guidance-ckpt", type=str, default=None)
+    ap.add_argument("--mock-guidance", action="store_true",
+                    help="random full-shape guidance networks and text embeddings")
+    ap.add_argument("--guidance-image-size", type=int, default=256)
+    ap.add_argument("--guidance-dtype", type=str, default="bf16", choices=["bf16", "f32"],
+                    help="guidance networks' compute dtype (the reference runs "
+                    "half_precision_weights=true)")
+    ap.add_argument("--sds-mode", type=str, default="fused", choices=["split", "fused"],
+                    help="fused: the whole SDS inside the step (split arrives with the "
+                    "next guidance slice)")
     ap.add_argument("--multichip", action="store_true")
     ap.add_argument("--sds-start", type=int, default=None,
-                    help="override the stage's sds_start (gates the gen views' "
-                         "normal-consistency term)")
+                    help="override the stage's sds_start: steps <= sds_start run "
+                         "without SDS (and without the gen views' normal-consistency term)")
     ap.add_argument("--max-per-tile", type=int, default=64)
     ap.add_argument("--composite-dtype", type=str, default="bf16", choices=["f32", "bf16"],
                     help="dtype of the plain composite's [tiles, pixels, K] chain; the "
@@ -87,9 +108,15 @@ def main(argv=None):
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} is not ported yet ({what} arrives "
                      "with a later slice of the port)")
-    if args.guidance not in (None, "none"):
-        ap.error(f"--guidance {args.guidance} is not ported yet (SDS guidance arrives "
-                 "with a later slice of the port)")
+    if args.guidance == "imagedream":
+        ap.error("--guidance imagedream is not ported yet (its image prompt, the CLIP "
+                 "tower and Resampler, arrives with the next slice of the port)")
+    if args.guidance == "mvdream" and not args.mock_guidance:
+        ap.error("--guidance mvdream needs --mock-guidance (real weights need prompt "
+                 "embeddings, which arrive with the next slice of the port)")
+    if args.sds_mode == "split":
+        ap.error("--sds-mode split is not ported yet (it arrives with the next guidance "
+                 "slice of the port)")
     if not args.synthetic:
         ap.error("only --synthetic is ported so far (real captures arrive with a "
                  "later slice)")
@@ -142,16 +169,34 @@ def main(argv=None):
             stage_cfg = dc.replace(stage_cfg, sds_start=args.sds_start)
         return stage_cfg
 
+    # The guidance networks are built once; each stage rebinds its scalars
+    # (guidance scale, timestep window) with for_stage.
+    base_guidance = None
+    if args.guidance == "mvdream":
+        from ..guidance.build import build_guidance
+
+        base_guidance = build_guidance(
+            args.guidance, _resolve_stage(stages[0]),
+            generator=torch.Generator(device=dev).manual_seed(args.seed + 100),
+            mock=True,
+            image_size=args.guidance_image_size, n_view=cfg.n_views,
+            dtype=torch.bfloat16 if args.guidance_dtype == "bf16" else torch.float32,
+            device=dev,
+        )
+        print(f"guidance: {args.guidance} (mock, {args.guidance_dtype})")
+
     dump_settings = RenderSettings(use_explicit=args.use_explicit, raster=raster)
     global_step_base = 0
     for st in stages:
         stage_cfg = _resolve_stage(st)
+        guidance_fn = base_guidance.for_stage(stage_cfg) if base_guidance is not None else None
+        latent_size = guidance_fn.latent_size if guidance_fn is not None else None
         state, opt = init_train_state(params, cfg, seed=args.seed, stage=stage_cfg)
         step_fn = make_train_step(
             model, cfg, stage_cfg, opt,
             gen_size=gen_size, gt_size=ds.image_size, normal_size=normal_size,
             raster=raster, use_explicit=args.use_explicit,
-            has_normals=has_normals, has_normal_B=has_normal_B,
+            has_normals=has_normals, has_normal_B=has_normal_B, guidance_fn=guidance_fn,
         )
         logger = MetricLogger(args.out)
         timer = StepTimer()
@@ -203,7 +248,7 @@ def main(argv=None):
                     else:
                         batch_cache.move_to_end(frame)
             with timer.phase("step"):
-                draws = sample_step_draws(generator, cfg)
+                draws = sample_step_draws(generator, cfg, latent_size=latent_size)
                 state, metrics = step_fn(state, batch, draws)
             if it % args.log_every == 0 or it == n_steps - 1:
                 m = {k: round(float(v), 5) for k, v in metrics.items()}

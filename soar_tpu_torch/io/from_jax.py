@@ -1,4 +1,5 @@
-"""Carry a ``soar_tpu`` avatar across to this package.
+"""Carry a ``soar_tpu`` avatar, and its guidance networks, across to this
+package.
 
 Inputs are the JAX pytrees flattened by the caller into nested dicts of
 numpy arrays (``np.asarray`` on every leaf); nothing here imports JAX.
@@ -14,6 +15,8 @@ numpy arrays (``np.asarray`` on every leaf); nothing here imports JAX.
   ``smpl_params``, ``aabb``, ``original_pos``, ``num_frames``, ``body``
   and ``field_cfg`` (``dataclasses.asdict`` of the JAX config).
 - the training state's background MLP (``bg_params``).
+- the guidance networks' flax variables (:func:`unet_from_flax`,
+  :func:`vae_from_flax`) and text embeddings.
 
 Carrying ``model.skin`` and the field keeps every random or tie-sensitive
 init step (the field's ``jax.random`` tables, the kNN neighbour sets) out
@@ -110,3 +113,177 @@ def background_from_numpy(bg: Dict, device="cuda") -> Dict:
     as numpy) in the port's layout, which is the same."""
     dev = resolve_device(device)
     return {"layers": [{k: _t(v, dev) for k, v in layer.items()} for layer in bg["layers"]]}
+
+
+# ---------------------------------------------------------------- guidance
+#
+# The guidance networks' flax variables (``{"params": {...}}`` as nested
+# dicts of numpy arrays) -> the port's ``state_dict`` (LDM keys): the
+# inverse of ``soar_tpu.guidance.networks.convert_unet_torch_params`` /
+# ``convert_vae_torch_params``.  Dense kernels [in, out] -> [out, in]; conv
+# kernels HWIO -> OIHW; the VAE attention's Dense -> a 1x1 conv; a norm's
+# ``scale`` -> ``weight``.  Every flax leaf is used exactly once (checked
+# here), and ``load_state_dict(strict=True)`` checks that every parameter of
+# the module is filled.
+
+
+class _Leaves:
+    """Flat ``{path: array}`` view of a flax tree that records what is read."""
+
+    def __init__(self, tree: Dict):
+        self.left = {}
+
+        def walk(node, path):
+            for k, v in node.items():
+                if isinstance(v, dict):
+                    walk(v, path + (k,))
+                else:
+                    self.left[path + (k,)] = np.array(v, np.float32)
+
+        walk(tree.get("params", tree), ())
+
+    def has(self, *path) -> bool:
+        return any(k[:len(path)] == path for k in self.left)
+
+    def take(self, *path) -> np.ndarray:
+        return self.left.pop(path)
+
+    def done(self, what: str):
+        if self.left:
+            raise ValueError(f"{what}: flax leaves not carried across: "
+                             f"{['/'.join(k) for k in sorted(self.left)][:8]}")
+
+
+class _StateDict(dict):
+    def __init__(self, leaves: _Leaves):
+        super().__init__()
+        self.leaves = leaves
+
+    def dense(self, path, key, bias=True):
+        self[key + ".weight"] = torch.as_tensor(self.leaves.take(*path, "kernel").T.copy())
+        if bias:
+            self[key + ".bias"] = torch.as_tensor(self.leaves.take(*path, "bias"))
+
+    def dense_as_conv1x1(self, path, key):
+        self[key + ".weight"] = torch.as_tensor(
+            self.leaves.take(*path, "kernel").T.copy()[:, :, None, None])
+        self[key + ".bias"] = torch.as_tensor(self.leaves.take(*path, "bias"))
+
+    def conv(self, path, key):
+        k = self.leaves.take(*path, "kernel")  # HWIO
+        self[key + ".weight"] = torch.as_tensor(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
+        self[key + ".bias"] = torch.as_tensor(self.leaves.take(*path, "bias"))
+
+    def norm(self, path, key):
+        self[key + ".weight"] = torch.as_tensor(self.leaves.take(*path, "scale"))
+        self[key + ".bias"] = torch.as_tensor(self.leaves.take(*path, "bias"))
+
+
+def unet_from_flax(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """``soar_tpu``'s ``MultiViewUNet`` variables -> the port's
+    ``MultiViewUNet`` state_dict (CPU tensors); ``cfg`` is the port's
+    :class:`soar_tpu_torch.guidance.networks.UNetConfig`."""
+    lv = _Leaves(variables)
+    sd = _StateDict(lv)
+
+    def resblock(p, key):
+        sd.norm((p, "GroupNorm_0"), key + ".in_layers.0")
+        sd.conv((p, "Conv_0"), key + ".in_layers.2")
+        sd.dense((p, "Dense_0"), key + ".emb_layers.1")
+        sd.norm((p, "GroupNorm_1"), key + ".out_layers.0")
+        sd.conv((p, "Conv_1"), key + ".out_layers.3")
+        if lv.has(p, "Conv_2"):
+            sd.conv((p, "Conv_2"), key + ".skip_connection")
+
+    def attention(p, key):
+        for name in ("to_q", "to_k", "to_v", "to_k_ip", "to_v_ip"):
+            if lv.has(*p, name):
+                sd.dense(p + (name,), f"{key}.{name}", bias=False)
+        sd.dense(p + ("to_out",), key + ".to_out.0")
+
+    def transformer(p, key):
+        tb = key + ".transformer_blocks.0"
+        sd.norm((p, "GroupNorm_0"), key + ".norm")
+        sd.dense((p, "proj_in"), key + ".proj_in")
+        for i in (1, 2, 3):
+            sd.norm((p, "block0", f"norm{i}"), f"{tb}.norm{i}")
+        attention((p, "block0", "attn1"), tb + ".attn1")
+        attention((p, "block0", "attn2"), tb + ".attn2")
+        sd.dense((p, "block0", "GEGLU_0", "Dense_0"), tb + ".ff.net.0.proj")
+        sd.dense((p, "block0", "Dense_0"), tb + ".ff.net.2")
+        sd.dense((p, "proj_out"), key + ".proj_out")
+
+    for name in ("time_embed_0", "time_embed_2", "camera_embed_0", "camera_embed_2"):
+        if lv.has(name):
+            sd.dense((name,), name[:-2] + "." + name[-1])
+    if lv.has("ip_proj"):
+        sd.dense(("ip_proj",), "ip_proj")
+    sd.conv(("input_conv",), "input_blocks.0.0")
+    n = 1
+    levels = len(cfg.channel_mult)
+    for level in range(levels):
+        for i in range(cfg.num_res_blocks):
+            resblock(f"down_{level}_{i}_res", f"input_blocks.{n}.0")
+            if level in cfg.attention_levels:
+                transformer(f"down_{level}_{i}_attn", f"input_blocks.{n}.1")
+            n += 1
+        if level != levels - 1:
+            sd.conv((f"down_{level}_ds",), f"input_blocks.{n}.0.op")
+            n += 1
+    resblock("mid_res0", "middle_block.0")
+    transformer("mid_attn", "middle_block.1")
+    resblock("mid_res1", "middle_block.2")
+    n = 0
+    for level in reversed(range(levels)):
+        for i in range(cfg.num_res_blocks + 1):
+            resblock(f"up_{level}_{i}_res", f"output_blocks.{n}.0")
+            idx = 1
+            if level in cfg.attention_levels:
+                transformer(f"up_{level}_{i}_attn", f"output_blocks.{n}.1")
+                idx = 2
+            if level != 0 and i == cfg.num_res_blocks:
+                sd.conv((f"up_{level}_us",), f"output_blocks.{n}.{idx}.conv")
+            n += 1
+    sd.norm(("out_norm",), "out.0")
+    sd.conv(("out_conv",), "out.2")
+    lv.done("unet_from_flax")
+    return dict(sd)
+
+
+def vae_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """``soar_tpu``'s ``VAEEncoder`` variables -> the port's ``VAEEncoder``
+    state_dict (CPU tensors, LDM keys)."""
+    lv = _Leaves(variables)
+    sd = _StateDict(lv)
+
+    def resblock(p, key):
+        sd.norm((p, "GroupNorm_0"), key + ".norm1")
+        sd.conv((p, "Conv_0"), key + ".conv1")
+        sd.norm((p, "GroupNorm_1"), key + ".norm2")
+        sd.conv((p, "Conv_1"), key + ".conv2")
+        if lv.has(p, "Conv_2"):
+            sd.conv((p, "Conv_2"), key + ".nin_shortcut")
+
+    sd.conv(("conv_in",), "encoder.conv_in")
+    level = 0
+    while lv.has(f"down_{level}_0"):
+        for i in range(2):
+            resblock(f"down_{level}_{i}", f"encoder.down.{level}.block.{i}")
+        if lv.has(f"down_{level}_ds"):
+            sd.conv((f"down_{level}_ds",), f"encoder.down.{level}.downsample.conv")
+        level += 1
+    resblock("mid_res0", "encoder.mid.block_1")
+    resblock("mid_res1", "encoder.mid.block_2")
+    sd.norm(("mid_attn", "GroupNorm_0"), "encoder.mid.attn_1.norm")
+    for i, name in enumerate(("q", "k", "v", "proj_out")):
+        sd.dense_as_conv1x1(("mid_attn", f"Dense_{i}"), f"encoder.mid.attn_1.{name}")
+    sd.norm(("out_norm",), "encoder.norm_out")
+    sd.conv(("conv_out",), "encoder.conv_out")
+    sd.conv(("quant_conv",), "quant_conv")
+    lv.done("vae_from_flax")
+    return dict(sd)
+
+
+def text_embeddings_from_numpy(emb, device="cuda") -> torch.Tensor:
+    """The guidance's text embeddings [2, 77, D] (cond, uncond), float32."""
+    return torch.as_tensor(np.asarray(emb, np.float32)).to(resolve_device(device))

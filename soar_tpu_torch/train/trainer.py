@@ -1,12 +1,12 @@
-"""Two-stage training step, guidance-free (port of
-``soar_tpu.train.trainer``).
+"""Two-stage training step (port of ``soar_tpu.train.trainer``).
 
 One step renders the gen views (4 random novel views, each a main pass and
 an occ pass), the GT RGB pass with its occ pass and the normal front/back
 pair (``both_faces``: front, back and occ from one sort), evaluates every
 explicit loss of the reference system (``gaussian_surfel_mvdream.py:
-259-460``), backpropagates once and takes one per-group Adam step.  On CUDA
-every composite, forward and backward, is a hand-written kernel
+259-460``) and, with a ``guidance_fn``, the SDS loss on the gen views,
+backpropagates once and takes one per-group Adam step.  On CUDA every
+composite, forward and backward, is a hand-written kernel
 (:mod:`soar_tpu_torch.render.block_composite`).
 
 Random draws are split from the step: :func:`sample_step_draws` takes them
@@ -14,10 +14,15 @@ from a ``torch.Generator``, and the step takes them as an argument, so a
 test can hand it the JAX package's draws.  The step updates the state in
 place (the parameters and Adam moments are the only copies) and returns it.
 
-Not ported yet: SDS guidance (``guidance_fn``, ``split_sds``,
-``sds_via_params``) and LPIPS (``lpips_fn``) wait for the guidance slice,
-and view / row sharding (``shard_views``, ``shard_gt``) and ``gen_chunk``
-for the multi-device slice; passing any of them raises.  ``remat_gen`` and
+SDS guidance (:func:`soar_tpu_torch.guidance.build.build_guidance`) joins
+the loss after ``stage.sds_start``; a step at or before it never calls the
+guidance, as the JAX CLI's guidance-free warm-up program does not.  Its
+gradient reaches the renders through ``exp(-3 occ)``
+(:func:`scale_gradient`).  ``sds_via_params`` is the same computation here:
+the weights live in the guidance's modules.  Not ported yet: ``split_sds``
+and LPIPS (``lpips_fn``) wait for the next guidance slice, and view / row
+sharding (``shard_views``, ``shard_gt``) and ``gen_chunk`` for the
+multi-device slice; passing any of them raises.  ``remat_gen`` and
 ``remat_gt`` have no meaning in eager PyTorch and are accepted and ignored.
 """
 
@@ -58,6 +63,14 @@ class TrainState:
     step: int
 
 
+def scale_gradient(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Value-preserving gradient scaling: forward x, backward dL/dx * w, the
+    functional form of the reference's ``register_hook`` occ modulation
+    (``gaussian_surfel_mvdream.py:26-30, 213-218``)."""
+    w = w.detach()
+    return x * w + (x * (1.0 - w)).detach()
+
+
 def init_train_state(
     params: AvatarParams,
     cfg: TrainConfig,
@@ -87,12 +100,16 @@ def gen_camera_config(cfg: TrainConfig, nv: int) -> CameraSampleConfig:
 
 
 def sample_step_draws(
-    generator: torch.Generator, cfg: TrainConfig, n_views: Optional[int] = None
+    generator: torch.Generator, cfg: TrainConfig, n_views: Optional[int] = None,
+    latent_size: Optional[int] = None,
 ) -> Dict:
     """Every random draw of one step, on the generator's device:
     ``c2w`` [V, 4, 4] and ``fovy`` [V] of the gen views (the head cameras
     where ``head``), ``head`` (a bool tensor), ``rand_bg`` [3] (the GT
-    pass's background) and ``bg_aug`` (:func:`sample_random_aug`)."""
+    pass's background) and ``bg_aug`` (:func:`sample_random_aug`).  With
+    ``latent_size`` (the guidance's, ``guidance_fn.latent_size``) also
+    ``sds``: the timestep's uniform ``u`` and the latent ``noise`` and
+    ``vae_eps`` [V, h, w, 4], drawn after the others."""
     nv = n_views or cfg.n_views
     dev = generator.device
     c2w, fovy = sample_multiview_cameras(generator, gen_camera_config(cfg, nv))
@@ -105,7 +122,15 @@ def sample_step_draws(
         fovy = torch.where(head, head_fovy, fovy)
     bg_aug = sample_random_aug(generator, cfg.invert_bg_prob)
     rand_bg = torch.rand(3, generator=generator, device=dev)
-    return {"c2w": c2w, "fovy": fovy, "head": head, "rand_bg": rand_bg, "bg_aug": bg_aug}
+    draws = {"c2w": c2w, "fovy": fovy, "head": head, "rand_bg": rand_bg, "bg_aug": bg_aug}
+    if latent_size is not None:
+        shape = (nv, latent_size, latent_size, 4)
+        draws["sds"] = {
+            "u": torch.rand((), generator=generator, device=dev),
+            "noise": torch.randn(shape, generator=generator, device=dev),
+            "vae_eps": torch.randn(shape, generator=generator, device=dev),
+        }
+    return draws
 
 
 def _not_ported(name: str, later: str):
@@ -139,22 +164,29 @@ def make_train_step(
 ):
     """The training step of one stage: ``(state, batch, draws) -> (state,
     metrics)``, with ``batch`` from :func:`make_gt_batch` and ``draws``
-    from :func:`sample_step_draws`; ``metrics`` holds detached 0-d tensors
-    on the device.  ``train_step.loss_fn(params, bg_params, batch, draws,
-    step)`` returns ``(loss, metrics, aux)`` without stepping (``aux`` holds
-    the renders and the gen views' background composite)."""
+    from :func:`sample_step_draws` (with ``latent_size`` when guided);
+    ``metrics`` holds detached 0-d tensors on the device.
+
+    ``guidance_fn(inp, c2w, step, draws, ref_rgb, ref_mask, comp_bg,
+    ref_ip) -> {"loss_sds", "grad_norm"}`` receives the occ-weighted render
+    stack [V, H, W, 3] (stage 1: the neural-background composite; stage 0:
+    the rendered normals), the gen views' c2w, ``draws["sds"]``, the stage's
+    reference image and mask, the first view's background and
+    ``batch["ref_ip"]`` when the batch has it.
+
+    ``train_step.loss_fn(params, bg_params, batch, draws, step)`` returns
+    ``(loss, metrics, aux)`` without stepping (``aux`` holds the renders and
+    the gen views' background composite)."""
     for name, val, later in (
-        ("guidance_fn", guidance_fn, "SDS guidance"),
-        ("split_sds", split_sds, "SDS guidance"),
-        ("sds_via_params", sds_via_params, "SDS guidance"),
-        ("lpips_fn", lpips_fn, "SDS guidance and LPIPS"),
+        ("split_sds", split_sds, "next guidance"),
+        ("lpips_fn", lpips_fn, "next guidance (LPIPS)"),
         ("shard_views", shard_views, "multi-device"),
         ("shard_gt", shard_gt, "multi-device"),
         ("gen_chunk", gen_chunk, "multi-device"),
     ):
         if val is not None and val is not False:
             _not_ported(name, later)
-    del lpips_via_batch, remat_gen, remat_gt  # no meaning here
+    del lpips_via_batch, remat_gen, remat_gt, sds_via_params  # no meaning here
 
     nv = n_views or cfg.n_views
     gen_settings = RenderSettings(use_explicit=use_explicit, gen_view=True, raster=raster)
@@ -187,13 +219,13 @@ def make_train_step(
         ])
         bg_rgb = apply_random_aug(background_color(bg_params, rays_d), draws["bg_aug"])
         comp_rgb = gen["render"] + (1.0 - gen["mask"][..., None]) * bg_rgb
-        return gen, comp_rgb
+        return gen, comp_rgb, bg_rgb
 
     def loss_fn(params, bg_params, batch, draws, step: int):
         frame_idx = batch["frame_idx"]
         # One field query serves every render of the step.
         attrs = None if use_explicit else query_attributes(params, model)
-        gen, comp_rgb = gen_pass(params, bg_params, frame_idx, draws, attrs)
+        gen, comp_rgb, bg_rgb = gen_pass(params, bg_params, frame_idx, draws, attrs)
 
         # ---- GT passes
         rand_bg = draws["rand_bg"]
@@ -279,6 +311,28 @@ def make_train_step(
         loss_delta = torch.mean(torch.sqrt(torch.sum(dvec * dvec, -1) + 1e-12))
         loss = loss + C(w.delta) * loss_delta
         metrics["loss_delta"] = loss_delta
+
+        # ---- SDS guidance (``gaussian_surfel_mvdream.py:180-254``): the
+        # occ-weighted hook exp(-3 occ) on the guidance input, gated on
+        # lambda_occ > 0 as in the reference (a schedule counts as on); the
+        # RGB composite in stage 1, the rendered normals in stage 0, with
+        # that stage's reference image and the first view's background.
+        if guidance_fn is not None and step > stage.sds_start:
+            if "sds" not in draws:
+                raise ValueError("a guided step needs the SDS draws: sample_step_draws(..., "
+                                 "latent_size=guidance_fn.latent_size)")
+            inp = comp_rgb if stage.training_stage == 1 else gen["normal"]
+            if isinstance(w.occ, (tuple, list)) or float(w.occ) != 0.0:
+                inp = scale_gradient(inp, torch.exp(-3.0 * gen["occ"].detach()))
+            ref = ("gt_rgb_crop", "gt_mask_crop") if stage.training_stage == 1 else (
+                "gt_normal_F", "gt_normal_mask")
+            sds_out = guidance_fn(inp, draws["c2w"], step, draws["sds"],
+                                  ref_rgb=batch.get(ref[0]), ref_mask=batch.get(ref[1]),
+                                  comp_bg=bg_rgb[0], ref_ip=batch.get("ref_ip"))
+            loss = loss + C(w.sds) * sds_out["loss_sds"]
+            metrics["loss_sds"] = sds_out["loss_sds"]
+            if "grad_norm" in sds_out:
+                metrics["sds_grad_norm"] = sds_out["grad_norm"]
 
         # Capacity-truncation canaries: splats dropped past max_per_tile
         # (the farthest in their tile) and footprint-capped surfels.  The

@@ -53,6 +53,7 @@ from soar_tpu_torch.core import camera as tcam
 from soar_tpu_torch.data import cameras as tcams
 from soar_tpu_torch.data.dataset import AvatarDataset
 from soar_tpu_torch.field.attribute_field import reset_field
+from soar_tpu_torch.guidance import build as tbuild
 from soar_tpu_torch.io.from_jax import background_from_numpy
 from soar_tpu_torch.render.types import RasterConfig
 from soar_tpu_torch.train import background as tbg
@@ -446,7 +447,7 @@ def test_gt_batch_stack_matches_per_frame(avatar):
 # ------------------------------------------------------------------- CLI
 
 
-def test_cli_train_and_render_rot_round_trip(tmp_path):
+def test_cli_train_and_render_rot_round_trip(tmp_path, monkeypatch):
     out = str(tmp_path / "run")
     tcli.main(["--synthetic", "--stage", "both", "--steps", "2", "--device", "cpu",
                "--out", out, "--log-every", "1", "--eval"])
@@ -469,9 +470,26 @@ def test_cli_train_and_render_rot_round_trip(tmp_path):
                "--resume", os.path.join(out, "stage1"), "--log-every", "1"])
     rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
     assert rows[-1]["step"] == 2 and len(rows) == 5
-    for bad in (["--mock-guidance"], ["--guidance", "imagedream"], ["--wandb"],
-                ["--dataroot", "x"], ["--config", "x.yaml"], ["--trace-steps", "2"],
-                ["--multichip"], ["--lpips-weights", "x"], ["--import-ckpt", "x"], []):
+    for bad in (["--guidance", "imagedream"], ["--guidance", "imagedream", "--mock-guidance"],
+                ["--sds-mode", "split"], ["--guidance", "mvdream"], ["--prompt", "a"],
+                ["--guidance", "mvdream", "--mock-guidance", "--guidance-ckpt", "x"],
+                ["--gen-res", "256"],
+                ["--wandb"], ["--dataroot", "x"], ["--config", "x.yaml"],
+                ["--trace-steps", "2"], ["--multichip"], ["--lpips-weights", "x"],
+                ["--import-ckpt", "x"], []):
         with pytest.raises(SystemExit):
             tcli.main((["--synthetic"] if bad else []) + bad + ["--device", "cpu",
                                                                 "--out", out])
+    # SDS guidance with random networks, at the tiny shapes here: each
+    # stage's step 0 is its warm-up (sds_start 0), step 1 is guided.
+    monkeypatch.setattr(tbuild.NetworkShapes, "full", classmethod(lambda cls: cls.tiny(32)))
+    gout = str(tmp_path / "guided")
+    tcli.main(["--synthetic", "--stage", "both", "--steps", "2", "--sds-start", "0",
+               "--guidance", "mvdream", "--mock-guidance", "--guidance-image-size", "32",
+               "--device", "cpu", "--out", gout, "--log-every", "1", "--dump-every", "0"])
+    rows = [json.loads(line) for line in open(os.path.join(gout, "metrics.jsonl"))]
+    assert [("loss_sds" in r, r["stage"]) for r in rows] == [(False, 0), (True, 0), (False, 1),
+                                                             (True, 1)]
+    assert all(np.isfinite(r["loss"]) for r in rows)
+    assert all(np.isfinite(r["loss_sds"]) and r["sds_grad_norm"] > 0 for r in rows[1::2])
+    assert os.path.exists(os.path.join(gout, "stage1", "avatar.pt"))

@@ -211,3 +211,43 @@ def make_render_scene(n=60, seed=0, spread=0.4):
     opac = rng.uniform(0.3, 1.0, n).astype(np.float32)
     colors = rng.uniform(0, 1, (n, 3)).astype(np.float32)
     return means, quats.astype(np.float32), scales, opac, colors
+
+
+def random_flax_variables(shape_tree, seed=0, affine=True):
+    """Numpy values for a flax variable tree of ``jax.ShapeDtypeStruct``s
+    (``jax.eval_shape`` of an ``init``).  Every kernel is N(0, 1/fan_in), so
+    no layer starts at zero (flax zeroes some output kernels) and every
+    weight reaches the output.  With ``affine`` the norm scales are
+    1 + 0.1 N(0, 1) and the biases 0.1 N(0, 1), so a bias or a norm carried
+    to the wrong module shows in the output; without, they are flax's
+    initial 1 and 0."""
+    import jax
+
+    rng = np.random.RandomState(seed)
+
+    def leaf(path, x):
+        name = path[-1].key
+        if name == "scale":
+            if not affine:
+                return np.ones(x.shape, np.float32)
+            return (1.0 + 0.1 * rng.randn(*x.shape)).astype(np.float32)
+        if name == "bias":
+            if not affine:
+                return np.zeros(x.shape, np.float32)
+            return (0.1 * rng.randn(*x.shape)).astype(np.float32)
+        fan_in = int(np.prod(x.shape[:-1]))
+        return (rng.randn(*x.shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(leaf, shape_tree)
+
+
+def tiny_guidance_variables(n_view=2, with_ip=False, image_size=32, seed=0, affine=True):
+    """soar_tpu's tiny guidance networks (``NetworkShapes.tiny``) with
+    :func:`random_flax_variables`: ``{"unet": ..., "vae": ...}`` as numpy
+    trees."""
+    from soar_tpu.guidance import build as jbuild
+
+    shapes = jbuild.NetworkShapes.tiny(image_size)
+    unet_shapes, vae_shapes = jbuild._mock_unet_vae_shapes(shapes, n_view, with_ip)
+    return {"unet": random_flax_variables(unet_shapes, seed, affine),
+            "vae": random_flax_variables(vae_shapes, seed + 1, affine)}
