@@ -44,32 +44,49 @@
    make_train_step``) at the full width of bench_trainstep.py's guidance-
    free production step: the same scene and its 8 random GT frames, 4 gen
    views at 256x256, the GT pass and the normal front/back pass at
-   512x512, K=64.  2 warm-up steps, then 5 timed steps with the counters
-   set to 0 just before and read just after: 13 forward and 8 backward
-   kernel launches a step.  Checks the losses, the parameter updates and
-   that no op of a step computes on the CPU, profiles one step, and holds
-   the kernel step's losses and gradients against the plain composite's.
-   The last warm-up step's composite launches are recorded and replayed
-   as the view's are (backward: two launches bit-equal).
-9. Drives the guided training step (``[guided train]``): the same scene,
-   views and raster, stage 1 from its first step, with
-   ``guidance.build.build_guidance("imagedream", mock=True)`` at full shape
-   in bf16 (UNet 893,131,204 and VAE encoder 34,163,664 parameters,
-   checked) and seeded ip tokens [16, 1024] in the batch.  2 warm-up and 5
+   512x512, K=64, and the normal-LPIPS terms through a bf16 VGG16
+   (``train.lpips.make_lpips_fn``; random weights drawn on the card from
+   seed 7 and written as the ``--lpips-weights`` pickle).  2 warm-up
+   steps, then 5 timed steps with the counters set to 0 just before and
+   read just after: 13 forward and 8 backward kernel launches a step.
+   Checks the losses, the parameter updates and that no op of a step
+   computes on the CPU, profiles one step, times the VGG16's forward and
+   backward inside synced steps, holds bf16 LPIPS against f32 on the
+   step's normal render, and holds the kernel step's losses and gradients
+   against the plain composite's (f32 LPIPS in both).  The last warm-up
+   step's composite launches are recorded and replayed as the view's are
+   (backward: two launches bit-equal).
+9. The image prompt (``[image prompt]``): ``guidance.build.build_guidance(
+   "imagedream", mock=True)`` at full shape in bf16 (UNet 893,131,204, VAE
+   encoder 34,163,664, CLIP ViT-H/14 penultimate 611,086,080 and
+   Resampler 48,541,696 parameters, checked); the ip tokens of the 8
+   frames' 512x512 ``images_crop`` through ``embed_ref`` ([16, 1024],
+   finite, different across frames; ms per frame, peak memory), bf16
+   against f32 tokens, and the memory ``release_image_encoder()`` frees
+   (at least the towers' bf16 bytes).
+10. Drives the guided training step (``[guided train]``): the same scene,
+   views, raster and LPIPS, stage 1 from its first step, with that
+   guidance and each frame's ip tokens in its batch.  2 warm-up and 5
    timed steps, counted (13 forward and 8 backward launches a step), with
    finite SDS metrics and no gradient on a guidance weight; a profiled
    step and its peak memory; the UNet's and the VAE encoder's device ms
    inside a synced step; no op on the CPU; the SDS term's reach to the
    colours and the occ hook (SDS pull at occ high at most half that at occ
-   low); the kernel step against the plain one with float32 networks (loss
-   terms 1e-3 relative, gradients as in 8); one stage-0 step.
-10. Runs the training CLI (``--synthetic --stage both --steps 3``), the
+   low); the kernel step against the plain one with float32 networks and
+   LPIPS (loss terms 1e-3 relative, gradients as in 8); one stage-0 step.
+11. Runs the training CLI (``--synthetic --stage both --steps 3``), the
    turntable CLI on its checkpoint, and the mesh-export CLI on it (default
    flags with and without ``--field-attrs``), reads the OBJs back, and
    checks that no op of the density field computes on the CPU; then the
-   guided CLI (``--guidance mvdream --mock-guidance --stage both --steps 3
-   --sds-start 0``).
-11. Prints the wall seconds of each phase (``[time]``), a
+   guided CLI: ``--guidance mvdream --mock-guidance --stage both --steps 3
+   --sds-start 0``; ``--guidance imagedream --mock-guidance --stage 1
+   --steps 3 --sds-start 0 --lpips-weights <pickle> --lambda-vgg 0.1
+   --eval``, fused and with ``--sds-mode split`` (the precomputed-ip-tokens
+   line, finite ``loss_sds`` and ``loss_vgg``, an LPIPS column in
+   ``average.txt``, the first guided step's ``loss_sds`` equal within
+   1e-4 relative); ``--guidance mvdream --mock-guidance
+   --prompt-embeddings <seeded npz>``.
+12. Prints the wall seconds of each phase (``[time]``), a
    ``{"kernels": [...]}`` line (the block composites with the summed
    device ms and bound of their recorded main-path launches,
    ``main_path_ms`` and ``main_path_bound_ms``, and their launches per step
@@ -1099,17 +1116,19 @@ def train_dataset(ds_turntable):
 
 
 TRAIN_STEPS, WARMUP_STEPS = 5, 2
+TRAIN_SIZES = dict(gen_size=(256, 256), gt_size=(512, 512), normal_size=(512, 512))
 FWD_PER_STEP = 13  # 4 gen views x (main + occ), GT main + occ, normal front + back + occ
 BWD_PER_STEP = 8  # 4 gen mains, GT main + occ, normal front + back (see PERF.md)
 CHANGING_GROUPS = {"xyz", "rotation", "occ", "field", "field_scales"}
 
 
-def train_setup(ds, params, model, device):
+def train_setup(ds, params, model, device, lpips_fn):
     """The full-width guidance-free training step (bench_trainstep.py's
-    production step, reconstruction only): stage 0, 4 gen views at 256x256,
-    GT and normal passes at 512x512, K=64, the attribute field.  Returns its
-    config, state, optimizer, step, GT batches, the draws' generators and
-    ``one_step()``, which draws and runs one step."""
+    production step): stage 0, 4 gen views at 256x256, GT and normal passes
+    at 512x512, K=64, the attribute field, the normal-LPIPS terms through
+    ``lpips_fn`` (bf16 VGG16).  Returns its config, state, optimizer, step,
+    GT batches, the draws' generators and ``one_step()``, which draws and
+    runs one step."""
     from types import SimpleNamespace
 
     from soar_tpu_torch.render.types import RasterConfig
@@ -1124,10 +1143,10 @@ def train_setup(ds, params, model, device):
     cfg = TrainConfig(n_views=4, head_prob=0.0)
     stage = StageConfig()
     raster = RasterConfig(max_per_tile=TRAIN_K, dup_side=5, composite_dtype="bf16")
-    sizes = dict(gen_size=(256, 256), gt_size=(512, 512), normal_size=(512, 512))
+    sizes = dict(TRAIN_SIZES)
     state, opt = init_train_state(params, cfg, stage=stage)
     step = make_train_step(model, cfg, stage, opt, raster=raster, use_explicit=False,
-                           has_normals=True, **sizes)
+                           has_normals=True, lpips_fn=lpips_fn, **sizes)
     with timed("train: GT batches"):
         batches = [make_gt_batch(ds, model, f, device) for f in ds.train_idx]
     gen = torch.Generator(device=device).manual_seed(0)
@@ -1139,17 +1158,21 @@ def train_setup(ds, params, model, device):
 
     return SimpleNamespace(cfg=cfg, stage=stage, raster=raster, sizes=sizes, state=state,
                            opt=opt, step=step, batches=batches, gen=gen, frames=frames,
-                           one_step=one_step)
+                           one_step=one_step, lpips_fn=lpips_fn)
 
 
-def run_training(ds, params, model, device):
-    """Drives and checks the training step of :func:`train_setup`."""
+def run_training(ds, params, model, device, lpips_path):
+    """Drives and checks the training step of :func:`train_setup`, with the
+    LPIPS weights of ``lpips_path``."""
     import dataclasses
 
     from soar_tpu_torch.render import block_composite
+    from soar_tpu_torch.train.lpips import make_lpips_fn
     from soar_tpu_torch.train.trainer import make_train_step, sample_step_draws
 
-    ts = train_setup(ds, params, model, device)
+    lpips16 = make_lpips_fn(lpips_path, dtype=torch.bfloat16, device=device)
+    lpips32 = make_lpips_fn(lpips_path, dtype=torch.float32, device=device)
+    ts = train_setup(ds, params, model, device, lpips16)
     cfg, stage, raster, sizes, state, opt, step = (
         ts.cfg, ts.stage, ts.raster, ts.sizes, ts.state, ts.opt, ts.step)
     batches, gen, frames, one_step = ts.batches, ts.gen, ts.frames, ts.one_step
@@ -1189,12 +1212,16 @@ def run_training(ds, params, model, device):
     rows = [{k: float(v) for k, v in m.items()} for m in metrics]
     for r in rows:
         check(all(np.isfinite(v) for v in r.values()), f"training: a loss is not finite: {r}")
+        # The LPIPS terms are in: each normal term exceeds its cosine part
+        # (0.2 x a cosine loss in [0, 2]) only with them, and on random
+        # weights LPIPS is far from 0.
+        check(r["loss_normal_F"] > 0 and r["loss_normal_B"] > 0, f"training: normal terms {r}")
     changed = {name for name, ps in opt.groups.items()
                if any(not torch.equal(p, q) for p, q in zip(ps, groups[name]))}
     check(changed == CHANGING_GROUPS,
           f"training: groups changed {sorted(changed)}, want {sorted(CHANGING_GROUPS)}")
     print(f"[train] {ds.num_frames} frames, 4 gen views 256x256, GT + normal F/B 512x512, "
-          f"K={TRAIN_K}: {ms:.3f} ms/step over {TRAIN_STEPS} steps ({[round(x, 3) for x in step_ms]} "
+          f"K={TRAIN_K}, normal-LPIPS terms (bf16 VGG16): {ms:.3f} ms/step over {TRAIN_STEPS} steps ({[round(x, 3) for x in step_ms]} "
           f"ms) after {WARMUP_STEPS} warm-up; launches fwd {fwd} ({fwd // TRAIN_STEPS}/step), "
           f"bwd {bwd} ({bwd // TRAIN_STEPS}/step); groups updated {sorted(changed)} (colors, "
           f"opacity, scaling, latent_pose and the offsets/opacities heads get no gradient in "
@@ -1225,36 +1252,85 @@ def run_training(ds, params, model, device):
         print(f"    {row['ms']:9.4f} ms  x{row['calls']:<5d} {row['name']}")
 
     # ---- where a step's wall time goes: the loss (every render), the
-    # backward and the optimizer, each ended by a sync, over 3 steps
-    phases = {"forward": [], "backward": [], "optimizer": []}
+    # backward and the optimizer, each ended by a sync, over 3 steps; the
+    # VGG16's forward and backward device ms inside them (CUDA events from
+    # module hooks; two LPIPS calls a step, normal front and back)
+    phases = {"forward": [], "backward": [], "optimizer": [], "vgg_forward": [],
+              "vgg_backward": []}
     t_phases = time.perf_counter()
+    vgg = ts.lpips_fn.net.vgg
     for _ in range(3):
         draws = sample_step_draws(gen, cfg)
         batch = batches[frames.randint(len(batches))]
         opt.zero_grad()
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, _, _ = step.loss_fn(state.params, state.bg_params, batch, draws, state.step)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        loss.backward()
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        with module_spans(vgg, backward=True) as sv:
+            t0 = time.perf_counter()
+            loss, _, _ = step.loss_fn(state.params, state.bg_params, batch, draws, state.step)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            loss.backward()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
         opt.step()
         torch.cuda.synchronize()
         t3 = time.perf_counter()
         state.step += 1
         for name, a, b in (("forward", t0, t1), ("backward", t1, t2), ("optimizer", t2, t3)):
             phases[name].append(1e3 * (b - a))
+        check(len(sv.events["forward"]) == len(sv.events["backward"]) == 2,
+              f"training: {len(sv.events['forward'])} VGG forwards in a step, want 2")
+        spans = sv.ms()
+        phases["vgg_forward"].append(spans["forward"])
+        phases["vgg_backward"].append(spans["backward"])
     phase_ms = {k: float(np.median(v)) for k, v in phases.items()}
     WALL_S["train: 3 synced phase steps"] = time.perf_counter() - t_phases
     print("[train] phases, median ms of 3 synced steps: " + ", ".join(
-        f"{k} {v:.3f}" for k, v in phase_ms.items()))
+        f"{k} {v:.3f}" for k, v in phase_ms.items() if not k.startswith("vgg"))
+        + f"; VGG16 (2 LPIPS calls, bf16) forward {phase_ms['vgg_forward']:.3f} ms, backward "
+        f"{phase_ms['vgg_backward']:.3f} ms device time between CUDA events from module hooks")
 
-    # ---- the same step with the plain composite: same state and draws
+    # ---- bf16 against f32 LPIPS (the same weights) on the step's normal
+    # render and the GT normals, as the front normal term feeds them
+    draws = sample_step_draws(gen, cfg)
+    with torch.no_grad():
+        _, _, aux = step.loss_fn(state.params, state.bg_params, batches[0], draws, state.step)
+    nm = batches[0]["gt_normal_mask"][..., None]
+    pred = (aux["gt_normal_F"]["normal"].detach() * nm - 0.5) * 2.0
+    gt_n = (batches[0]["gt_normal_F"] * nm - 0.5) * 2.0
+    del aux
+
+    def lpips_of(fn):
+        x = pred.clone().requires_grad_(True)
+        val = fn(x, gt_n)
+        val.backward()
+        return float(val.detach()), x.grad
+
+    with timed("train: bf16 vs f32 LPIPS"):
+        l16, d16 = lpips_of(lpips16)
+        l32, d32 = lpips_of(lpips32)
+    lpips_spread = {"loss": abs(l16 - l32) / max(abs(l32), 1e-30),
+                    "input_grad": float((d16 - d32).norm() / d32.norm().clamp_min(1e-30))}
+    del d16, d32
+    print(f"[train] bf16 vs f32 LPIPS (same weights; the step's front-normal render against "
+          f"the GT, 512x512): {l16:.6g} vs {l32:.6g}, rel diff {lpips_spread['loss']:.4g} "
+          f"(bound {LPIPS_BF16_LOSS_RTOL}); gradient on the render rel L2 diff "
+          f"{lpips_spread['input_grad']:.4g} (bound {LPIPS_BF16_GRAD_RTOL})")
+    check(np.isfinite(l16) and l32 > 0, f"LPIPS bf16 vs f32: {l16}, {l32}")
+    check(lpips_spread["loss"] <= LPIPS_BF16_LOSS_RTOL,
+          f"LPIPS bf16 vs f32: the loss differs by {lpips_spread['loss']:.4g}")
+    check(lpips_spread["input_grad"] <= LPIPS_BF16_GRAD_RTOL,
+          f"LPIPS bf16 vs f32: the render's gradient differs by {lpips_spread['input_grad']:.4g}")
+
+    # ---- the same step with the plain composite: same state and draws,
+    # both with float32 LPIPS (bf16 would round the two renders' small
+    # differences to whole bf16 steps)
+    kern = make_train_step(model, cfg, stage, opt, raster=raster, use_explicit=False,
+                           has_normals=True, lpips_fn=lpips32, **sizes)
     plain = make_train_step(model, cfg, stage, opt, use_explicit=False, has_normals=True,
                             raster=dataclasses.replace(raster, composite="plain",
-                                                       composite_dtype="f32"), **sizes)
+                                                       composite_dtype="f32"),
+                            lpips_fn=lpips32, **sizes)
     draws = sample_step_draws(gen, cfg)
 
     def grads_of(fn):
@@ -1276,7 +1352,7 @@ def run_training(ds, params, model, device):
         return {k: float(v.detach()) for k, v in m.items()}, g, wall, launched
 
     with timed("train: kernel vs plain step"):
-        mk, gk, wall_k, launched_k = grads_of(step)
+        mk, gk, wall_k, launched_k = grads_of(kern)
         mp, gp, wall_p, launched_p = grads_of(plain)
     opt.zero_grad()
     # The comparison is between two paths: the kernels' and the plain one.
@@ -1285,7 +1361,7 @@ def run_training(ds, params, model, device):
     check(set(gk) == set(gp), f"kernel vs plain: grads of {sorted(gk)} vs {sorted(gp)}")
     loss_rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp}
     grad_rel = {k: float((gk[k] - gp[k]).norm() / gp[k].norm().clamp_min(1e-30)) for k in gp}
-    print(f"[train] kernel vs plain step (same state and draws; loss + backward "
+    print(f"[train] kernel vs plain step (same state and draws, f32 LPIPS; loss + backward "
           f"{wall_k:.1f} ms kernel, {wall_p:.1f} ms plain): loss terms rel diff "
           + json.dumps({k: float(f"{v:.3g}") for k, v in loss_rel.items()}))
     print("[train] gradient rel L2 diff per leaf " + json.dumps(
@@ -1305,6 +1381,130 @@ def run_training(ds, params, model, device):
         "cpu_transfers_per_step": cpu_moves, "kernel_vs_plain": {
             "loss_rel": loss_rel, "grad_rel_l2": grad_rel, "wall_ms_kernel": wall_k,
             "wall_ms_plain": wall_p},
+        "lpips_bf16_vs_f32": lpips_spread, "lpips_bf16_f32_values": [l16, l32],
+    }
+
+
+# bf16 LPIPS (the loss path) against f32 with the same weights, on the
+# step's front-normal render: the loss and its gradient on the render,
+# relative.  About 3.6x and 2x the spread measured on an H100 (1.37e-4 and
+# 0.121; PERF.md section 6).
+LPIPS_BF16_LOSS_RTOL = 5e-4
+LPIPS_BF16_GRAD_RTOL = 0.25
+
+# The image prompt: ImageDream's CLIP ViT-H/14 in penultimate mode (31 of
+# its 32 blocks, no ln_post or proj) and the Resampler, by their
+# checkpoints' key manifests.
+CLIP_PARAMS_PENULTIMATE = 611_086_080
+RESAMPLER_PARAMS = 48_541_696
+# bf16 ip tokens against f32 ones (the same weights, widened), relative L2
+# over the 8 frames: about 3x the spread measured on an H100 (9.02e-3;
+# PERF.md section 6).
+IP_BF16_REL_L2 = 0.03
+# Tokens of different frames must differ by more than this, relative L2.
+IP_FRAME_SPREAD_MIN = 1e-3
+
+
+def run_image_prompt(ds, device):
+    """``[image prompt]``: the full-shape mock ImageDream guidance in bf16
+    (UNet, VAE, CLIP tower and Resampler; the weights that
+    :func:`run_guided_training` trains with), the towers' parameter counts,
+    the ip tokens of the 8 training frames' 512x512 ``images_crop`` through
+    ``embed_ref`` (ms per frame by CUDA events, peak memory), bf16 against
+    f32 tokens, and the memory ``release_image_encoder()`` frees.  Returns
+    the guidance and the tokens [F, 16, 1024]."""
+    import gc
+
+    from soar_tpu_torch.guidance.build import build_guidance, make_image_encoder
+    from soar_tpu_torch.guidance.clip_vit import make_image_embed_fn
+    from soar_tpu_torch.train.config import stage1_config
+
+    gen_t = torch.Generator(device=device).manual_seed(100)
+    with timed("image prompt: build"):
+        g = build_guidance("imagedream", stage1_config(), generator=gen_t, mock=True,
+                           dtype=torch.bfloat16, device=device)
+        torch.cuda.synchronize()
+    enc = g.image_encoder
+    n_clip = sum(p.numel() for p in enc["clip"].parameters())
+    n_res = sum(p.numel() for p in enc["resampler"].parameters())
+    check((n_clip, n_res) == (CLIP_PARAMS_PENULTIMATE, RESAMPLER_PARAMS),
+          f"image towers' parameters {n_clip}, {n_res}, want {CLIP_PARAMS_PENULTIMATE}, "
+          f"{RESAMPLER_PARAMS}")
+    check(all(p.dtype == torch.bfloat16 and p.device.type == "cuda" and not p.requires_grad
+              for m in enc.values() for p in m.parameters()),
+          "image towers not frozen bf16 on the card")
+    tower_bytes = sum(p.numel() * p.element_size() for m in enc.values() for p in m.parameters())
+    crops = [torch.as_tensor(ds.images_crop[f], device=device) for f in ds.train_idx]
+
+    with timed("image prompt: embed 8 frames"):
+        g.embed_ref(crops[0])  # first call: cuBLAS / cuDNN set-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(len(crops) + 1)]
+        ev[0].record()
+        tokens = []
+        for i, c in enumerate(crops):
+            tokens.append(g.embed_ref(c))
+            ev[i + 1].record()
+        torch.cuda.synchronize()
+        frame_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(len(crops))]
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        peak_over_gib = (torch.cuda.max_memory_allocated() - base) / 2**30
+    ip_table = torch.stack(tokens)
+    check(tuple(ip_table.shape) == (len(crops),) + g.shapes.ip_shape == (8, 16, 1024)
+          and ip_table.dtype == torch.float32 and bool(torch.isfinite(ip_table).all()),
+          f"ip tokens {tuple(ip_table.shape)} {ip_table.dtype}")
+    spread = min(float((ip_table[i] - ip_table[0]).norm() / ip_table[0].norm())
+                 for i in range(1, len(crops)))
+    check(spread > IP_FRAME_SPREAD_MIN, f"ip tokens hardly differ across frames ({spread:.3g})")
+
+    # ---- bf16 against f32 tokens: the same weights, widened
+    with timed("image prompt: bf16 vs f32 tokens"):
+        clip32, res32 = make_image_encoder(g.shapes, dtype=torch.float32, device=device)
+        clip32.load_state_dict(enc["clip"].state_dict())
+        res32.load_state_dict(enc["resampler"].state_dict())
+        embed32 = make_image_embed_fn(clip32.eval(), res32.eval())
+        t32 = torch.stack([embed32(c) for c in crops])
+        bf16_rel = float((ip_table - t32).norm() / t32.norm())
+        del clip32, res32, embed32, t32
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # ---- the release frees the towers
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    g.release_image_encoder()
+    del enc
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    freed = before - after
+    check(freed >= tower_bytes, f"release_image_encoder freed {freed} bytes, the towers hold "
+          f"{tower_bytes}")
+    check(g.image_encoder == {"clip": None, "resampler": None}, "towers still held")
+    try:
+        g.embed_ref(crops[0])
+        released = False
+    except RuntimeError:
+        released = True
+    check(released, "embed_ref still runs after release_image_encoder()")
+    print(f"[image prompt] imagedream (mock, bf16): CLIP ViT-H/14 penultimate {n_clip:,} "
+          f"parameters, Resampler {n_res:,}; {len(crops)} frames' 512x512 images_crop -> ip "
+          f"tokens {tuple(ip_table.shape[1:])}: {np.mean(frame_ms):.3f} ms/frame "
+          f"({[round(x, 3) for x in frame_ms]} ms, CUDA events); peak memory {peak_gib:.3f} GiB "
+          f"({peak_over_gib:.4f} GiB over the weights); tokens across frames differ by >= "
+          f"{spread:.4g} relative L2")
+    print(f"[image prompt] bf16 vs f32 tokens (same weights, widened): rel L2 {bf16_rel:.4g} "
+          f"(bound {IP_BF16_REL_L2}); release_image_encoder(): allocated {before / 2**30:.3f} -> "
+          f"{after / 2**30:.3f} GiB (freed {freed / 2**30:.3f} GiB; the towers' bf16 bytes "
+          f"{tower_bytes / 2**30:.3f} GiB)")
+    check(bf16_rel <= IP_BF16_REL_L2, f"ip tokens bf16 vs f32: rel L2 {bf16_rel:.4g}")
+    return g, ip_table, {
+        "clip_params": n_clip, "resampler_params": n_res, "ms_per_frame": frame_ms,
+        "peak_memory_gib": peak_gib, "peak_over_weights_gib": peak_over_gib,
+        "frame_spread_rel_l2": spread, "bf16_vs_f32_rel_l2": bf16_rel,
+        "allocated_before_release": before, "allocated_after_release": after,
+        "tower_bytes": tower_bytes,
     }
 
 
@@ -1322,6 +1522,11 @@ GUIDED_LOSS_RTOL = 1e-3
 # an H100 at the full shape (1.62e-4 and 4.27e-2; PERF.md section 6).
 GUIDED_BF16_LOSS_RTOL = 5e-4
 GUIDED_BF16_GRAD_RTOL = 0.1
+# The CLI's first guided step, split SDS against fused: the same renders,
+# VAE and target, up to the nondeterministic order of the hash tables'
+# gradient scatter in the step before it.
+CLI_SPLIT_RTOL = 1e-4
+CONTEXT_DIM = 1024  # the UNet's text context width (NetworkShapes.full())
 # exp(-3 occ) at occ logits -10 / +10 (occ ~0 / ~1) scales the SDS pull by
 # ~1 / ~0.05; the check asks for a 2x shrink, as tests/test_sds_train.py.
 OCC_HOOK_SHRINK = 2.0
@@ -1372,34 +1577,32 @@ class module_spans:
         return {k: sum(a.elapsed_time(b) for a, b in v) for k, v in self.events.items()}
 
 
-def run_guided_training(ds, params, model, device):
+def run_guided_training(ds, params, model, device, g, ip_table, lpips_path):
     """The full-width training step with SDS guidance: the scene, batches,
-    views and raster of :func:`train_setup`, stage 1 (the RGB composite
-    guides) with ``sds_start`` 0, and ``build_guidance("imagedream", mock=
-    True)`` at full shape in bf16 with seeded ip tokens [16, 1024] in every
-    batch.  2 warm-up steps and 5 timed, counted; a profiled step, the
-    UNet's and the VAE's device ms inside a synced step, the host-op check,
-    the SDS term's reach (colours' gradient with and without it, and the occ
-    hook), the kernel step against the plain one with float32 networks, and
-    one stage-0 step."""
+    views and raster of :func:`train_setup` with its normal-LPIPS terms,
+    stage 1 (the RGB composite guides) with ``sds_start`` 0, and the
+    guidance ``g`` of :func:`run_image_prompt` (full shape, bf16) with each
+    frame's ip tokens from ``ip_table`` in its batch.  2 warm-up steps and 5
+    timed, counted; a profiled step, the UNet's and the VAE's device ms
+    inside a synced step, the host-op check, the SDS term's reach (colours'
+    gradient with and without it, and the occ hook), the kernel step
+    against the plain one with float32 networks and LPIPS, and one stage-0
+    step."""
     import dataclasses
 
     from soar_tpu_torch.guidance.build import build_guidance
     from soar_tpu_torch.render import block_composite
     from soar_tpu_torch.train.config import LossWeights, StageConfig, stage1_config
+    from soar_tpu_torch.train.lpips import make_lpips_fn
     from soar_tpu_torch.train.trainer import make_train_step, sample_step_draws
 
     bc = block_composite.composite_block
-    ts = train_setup(ds, params, model, device)
+    lpips16 = make_lpips_fn(lpips_path, dtype=torch.bfloat16, device=device)
+    ts = train_setup(ds, params, model, device, lpips16)
     cfg, raster, sizes, opt = ts.cfg, ts.raster, ts.sizes, ts.opt
     state = ts.state
     stage = stage1_config()
     check(stage.sds_start == 0, "stage 1 guides from its first step")
-    gen_t = torch.Generator(device=device).manual_seed(100)
-    with timed("guided: build"):
-        g = build_guidance("imagedream", stage, generator=gen_t, mock=True, dtype=torch.bfloat16,
-                           device=device)
-        torch.cuda.synchronize()
     n_unet = sum(p.numel() for p in g.unet.parameters())
     n_vae = sum(p.numel() for p in g.vae.parameters())
     check((n_unet, n_vae) == (UNET_PARAMS_IPMV, VAE_PARAMS),
@@ -1407,11 +1610,10 @@ def run_guided_training(ds, params, model, device):
     check(all(p.dtype == torch.bfloat16 and p.device.type == "cuda" and not p.requires_grad
               for m in (g.unet, g.vae) for p in m.parameters()),
           "guidance weights not frozen bf16 on the card")
-    ref_ip = torch.randn(g.shapes.ip_shape, generator=gen_t, device=device)
-    batches = [dict(b, ref_ip=ref_ip) for b in ts.batches]
+    batches = [dict(b, ref_ip=ip_table[f]) for f, b in zip(ds.train_idx, ts.batches)]
     state.step = 1
     step = make_train_step(model, cfg, stage, opt, raster=raster, use_explicit=False,
-                           has_normals=True, guidance_fn=g, **sizes)
+                           has_normals=True, guidance_fn=g, lpips_fn=lpips16, **sizes)
     draw_gen = torch.Generator(device=device).manual_seed(1)
     frames = np.random.RandomState(2)
 
@@ -1444,14 +1646,16 @@ def run_guided_training(ds, params, model, device):
           f"guided: composite_bwd launched {bwd} times, want {BWD_PER_STEP * TRAIN_STEPS}")
     rows = [{k: float(v) for k, v in m.items()} for m in metrics]
     for r in rows:
-        check("loss_sds" in r and "sds_grad_norm" in r, f"guided: no SDS metrics in {sorted(r)}")
+        check("loss_sds" in r and "sds_grad_norm" in r and r["loss_normal_F"] > 0,
+              f"guided: no SDS metrics or normal-LPIPS terms in {r}")
         check(all(np.isfinite(v) for v in r.values()), f"guided: a loss is not finite: {r}")
     check(all(p.grad is None for m in (g.unet, g.vae) for p in m.parameters()),
           "guided: a guidance weight got a gradient")
     lat = g.latent_size
     print(f"[guided train] imagedream (mock, bf16; UNet {n_unet:,} parameters, VAE encoder "
-          f"{n_vae:,}), stage 1, 4 gen views 256x256 -> 4x{lat}x{lat} latents, GT + normal "
-          f"F/B 512x512, K={TRAIN_K}: {ms:.3f} ms/step over {TRAIN_STEPS} steps "
+          f"{n_vae:,}; each frame's ip tokens from [image prompt]), stage 1, 4 gen views "
+          f"256x256 -> 4x{lat}x{lat} latents, GT + normal F/B 512x512 with the normal-LPIPS "
+          f"terms (bf16), K={TRAIN_K}: {ms:.3f} ms/step over {TRAIN_STEPS} steps "
           f"({[round(x, 3) for x in step_ms]} ms) after {WARMUP_STEPS} warm-up; launches fwd "
           f"{fwd} ({fwd // TRAIN_STEPS}/step), bwd {bwd} ({bwd // TRAIN_STEPS}/step)")
     print("[guided train] last step's losses " + json.dumps(
@@ -1530,7 +1734,8 @@ def run_guided_training(ds, params, model, device):
     # them no gradient), one draw for every pass.
     def colors_grad(stage_c):
         fn = make_train_step(model, cfg, stage_c, opt, raster=raster, use_explicit=True,
-                             has_normals=True, guidance_fn=g.for_stage(stage_c), **sizes)
+                             has_normals=True, guidance_fn=g.for_stage(stage_c),
+                             lpips_fn=lpips16, **sizes)
         opt.zero_grad()
         loss, _, _ = fn.loss_fn(state.params, state.bg_params, batches[0], draws_c, state.step)
         loss.backward()
@@ -1567,12 +1772,14 @@ def run_guided_training(ds, params, model, device):
           f"({pull['low'] / max(pull['high'], 1e-30):.2f}x)")
 
     # ---- kernel against plain composite, float32 networks (the bf16
-    # networks' weights and text embeddings, widened), same draws
+    # networks' weights and text embeddings, widened) and LPIPS, same draws
     with timed("guided: kernel vs plain step (f32 networks)"):
+        lpips32 = make_lpips_fn(lpips_path, dtype=torch.float32, device=device)
         g32 = build_guidance("imagedream", stage,
                              generator=torch.Generator(device=device).manual_seed(100),
                              text_embeddings=g.guidance.text_embeddings,
                              mock=True, dtype=torch.float32, device=device)
+        g32.release_image_encoder()  # the batches carry the tokens
         g32.unet.load_state_dict(g.unet.state_dict())
         g32.vae.load_state_dict(g.vae.state_dict())
         seen = {}
@@ -1583,11 +1790,12 @@ def run_guided_training(ds, params, model, device):
             return g32(inp, c2w, step_, draws_, **kw)
 
         kern = make_train_step(model, cfg, stage, opt, raster=raster, use_explicit=False,
-                               has_normals=True, guidance_fn=g32_seen, **sizes)
+                               has_normals=True, guidance_fn=g32_seen, lpips_fn=lpips32,
+                               **sizes)
         plain = make_train_step(model, cfg, stage, opt, use_explicit=False, has_normals=True,
                                 raster=dataclasses.replace(raster, composite="plain",
                                                            composite_dtype="f32"),
-                                guidance_fn=g32, **sizes)
+                                guidance_fn=g32, lpips_fn=lpips32, **sizes)
         draws = sample_step_draws(draw_gen, cfg, latent_size=g.latent_size)
 
         def grads_of(fn):
@@ -1622,7 +1830,7 @@ def run_guided_training(ds, params, model, device):
                        "input_grad": float((d16 - d32).norm() / d32.norm().clamp_min(1e-30))}
         check(all(p.grad is None for m in (g.unet, g.vae, g32.unet, g32.vae)
                   for p in m.parameters()), "guided bf16 vs f32: a guidance weight got a gradient")
-        del g32, g32_seen, kern, plain, seen, d16, d32
+        del g32, g32_seen, kern, plain, seen, d16, d32, lpips32
         torch.cuda.empty_cache()
     print(f"[guided train] bf16 vs f32 guidance (same weights, render, draws and step): "
           f"loss_sds {l16:.6g} vs {l32:.6g}, rel diff {bf16_spread['loss_sds']:.4g} (bound "
@@ -1640,7 +1848,7 @@ def run_guided_training(ds, params, model, device):
           f"guided kernel vs plain: grads of {sorted(gk)} vs {sorted(gp)}")
     loss_rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp}
     grad_rel = {k: float((gk[k] - gp[k]).norm() / gp[k].norm().clamp_min(1e-30)) for k in gp}
-    print("[guided train] kernel vs plain step (f32 networks, same state and draws): loss "
+    print("[guided train] kernel vs plain step (f32 networks and LPIPS, same state and draws): loss "
           "terms rel diff " + json.dumps({k: float(f"{v:.3g}") for k, v in loss_rel.items()}))
     print("[guided train] gradient rel L2 diff per leaf " + json.dumps(
         {k: float(f"{v:.3g}") for k, v in grad_rel.items()}))
@@ -1655,7 +1863,8 @@ def run_guided_training(ds, params, model, device):
     # ---- one stage-0 step: the rendered normals guide, normal_F the reference
     stage0 = StageConfig(sds_start=0)
     step0 = make_train_step(model, cfg, stage0, opt, raster=raster, use_explicit=False,
-                            has_normals=True, guidance_fn=g.for_stage(stage0), **sizes)
+                            has_normals=True, guidance_fn=g.for_stage(stage0),
+                            lpips_fn=lpips16, **sizes)
     counts = (bc.launches, bc.bwd_launches)
     with timed("guided: stage-0 step"):
         m0 = {k: float(v) for k, v in one_step(step0)[1].items()}
@@ -1782,9 +1991,42 @@ def run_export(ckpt, out_dir, device):
     return reports
 
 
-def run_cli(device):
+class _Tee:
+    """A stdout that also keeps what is written."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_train_cli(argv):
+    """cli.train.main(argv), its stdout kept; returns (seconds, stdout,
+    metrics rows, the --out directory)."""
+    import contextlib
+
+    from soar_tpu_torch.cli import train
+
+    tee = _Tee(sys.stdout)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(tee):
+        train.main(argv)
+    out = argv[argv.index("--out") + 1]
+    rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
+    return time.perf_counter() - t0, "".join(tee.text), rows, out
+
+
+def run_cli(device, lpips_path):
     """cli.train --synthetic --stage both --steps 3, then cli.render_rot and
-    cli.export_mesh on its stage-1 checkpoint, in a temporary directory."""
+    cli.export_mesh on its stage-1 checkpoint, in a temporary directory;
+    then the guided CLI runs: mvdream (mock networks, both stages), ImageDream
+    with LPIPS (``lpips_path``) and --eval in fused and split SDS, and
+    mvdream with prompt embeddings from a seeded .npz."""
     from soar_tpu_torch.cli import render_rot, train
 
     with tempfile.TemporaryDirectory() as d:
@@ -1824,8 +2066,60 @@ def run_cli(device):
         print(f"[cli] train --synthetic --guidance mvdream --mock-guidance --stage both --steps 3 "
               f"--sds-start 0: {guided_s:.2f} s; 6 metrics rows, 4 with loss_sds "
               f"{[round(r['loss_sds'], 5) for r in guided_rows]}")
+
+        # ImageDream from the CLI: the image prompt embedded once per frame,
+        # LPIPS (the synthetic data has no normals: the VGG RGB term) and
+        # the LPIPS eval; the same run in fused and in split SDS.
+        idream = {}
+        for mode in ("fused", "split"):
+            argv = ["--synthetic", "--guidance", "imagedream", "--mock-guidance", "--stage", "1",
+                    "--steps", "3", "--sds-start", "0", "--lpips-weights", lpips_path,
+                    "--lambda-vgg", "0.1", "--eval", "--sds-mode", mode, "--log-every", "1",
+                    "--dump-every", "0", "--val-every", "0", "--device", device,
+                    "--out", os.path.join(d, f"imagedream_{mode}")]
+            with timed(f"cli imagedream {mode}"):
+                secs, text, rows, out = run_train_cli(argv)
+            check("precomputed ip tokens for 8 frames (stage 1" in text,
+                  f"cli imagedream {mode}: no precomputed-ip-tokens line")
+            check(len(rows) == 3 and [("loss_sds" in r) for r in rows] == [False, True, True]
+                  and all(np.isfinite(r["loss_vgg"]) for r in rows)
+                  and all(np.isfinite(r["loss_sds"]) for r in rows[1:]),
+                  f"cli imagedream {mode}: metrics rows {rows}")
+            avg = open(os.path.join(out, "test", "average.txt")).read().split()
+            check(len(avg) == 3 and np.isfinite(float(avg[2]))
+                  and os.path.exists(os.path.join(out, "test", "lpips.txt")),
+                  f"cli imagedream {mode}: average.txt {avg}")
+            idream[mode] = {"s": secs, "rows": rows, "average": [float(x) for x in avg]}
+        l_f, l_s = idream["fused"]["rows"][1]["loss_sds"], idream["split"]["rows"][1]["loss_sds"]
+        split_rel = abs(l_s - l_f) / max(abs(l_f), 1e-30)
+        print(f"[cli] train --synthetic --guidance imagedream --mock-guidance --stage 1 --steps 3 "
+              f"--sds-start 0 --lpips-weights <pickle> --lambda-vgg 0.1 --eval: "
+              f"{idream['fused']['s']:.2f} s fused, {idream['split']['s']:.2f} s with --sds-mode "
+              f"split; first guided step's loss_sds {l_f:.6g} fused, {l_s:.6g} split (rel diff "
+              f"{split_rel:.3g}); loss_vgg {[r['loss_vgg'] for r in idream['fused']['rows']]}; "
+              f"average.txt {idream['fused']['average']}")
+        check(split_rel <= CLI_SPLIT_RTOL, f"cli: split loss_sds differs by {split_rel:.3g}")
+
+        # Text embeddings from a .npz (seeded) instead of the mock ones.
+        emb = os.path.join(d, "prompt.npz")
+        rng = np.random.RandomState(3)
+        np.savez(emb, cond=rng.randn(77, CONTEXT_DIM).astype(np.float32),
+                 uncond=rng.randn(77, CONTEXT_DIM).astype(np.float32))
+        with timed("cli mvdream prompt embeddings"):
+            secs_emb, _, rows_emb, _ = run_train_cli(
+                ["--synthetic", "--guidance", "mvdream", "--mock-guidance", "--prompt-embeddings",
+                 emb, "--stage", "1", "--steps", "2", "--sds-start", "0", "--log-every", "1",
+                 "--dump-every", "0", "--val-every", "0", "--device", device,
+                 "--out", os.path.join(d, "mvdream_emb")])
+        check(len(rows_emb) == 2 and "loss_sds" in rows_emb[1]
+              and np.isfinite(rows_emb[1]["loss_sds"]), f"cli prompt embeddings: {rows_emb}")
+        print(f"[cli] train --synthetic --guidance mvdream --mock-guidance --prompt-embeddings "
+              f"<npz> --stage 1 --steps 2 --sds-start 0: {secs_emb:.2f} s; loss_sds "
+              f"{rows_emb[1]['loss_sds']:.6g}")
     return {"train_s": train_s, "render_rot_s": total_s - train_s, "export": export,
-            "guided_train_s": guided_s, "guided_rows": rows}
+            "guided_train_s": guided_s, "guided_rows": rows, "imagedream": idream,
+            "split_vs_fused_loss_sds_rel": split_rel, "prompt_embeddings_s": secs_emb,
+            "prompt_embeddings_rows": rows_emb}
 
 
 def ptxas_summary(log):
@@ -1934,10 +2228,23 @@ def main():
         export_full = run_export_full(params, model, args.export_resolution)
     with timed("train: dataset"):
         ds_train = train_dataset(ds)
-    tr = run_training(ds_train, params, model, "cuda")
-    guided = run_guided_training(ds_train, params, model, "cuda")
+    tmp = tempfile.TemporaryDirectory()
+    lpips_path = os.path.join(tmp.name, "lpips_vgg16.pkl")
+    with timed("LPIPS weights"):
+        import pickle
+
+        from soar_tpu_torch.train.lpips import mock_lpips_variables
+
+        with open(lpips_path, "wb") as f:  # drawn on the card from seed 7
+            pickle.dump(mock_lpips_variables(seed=7, device="cuda"), f)
+    tr = run_training(ds_train, params, model, "cuda", lpips_path)
+    g, ip_table, image_prompt = run_image_prompt(ds_train, "cuda")
+    guided = run_guided_training(ds_train, params, model, "cuda", g, ip_table, lpips_path)
+    del g, ip_table
+    torch.cuda.empty_cache()
     with timed("cli and export"):
-        cli = run_cli("cuda")
+        cli = run_cli("cuda", lpips_path)
+    tmp.cleanup()
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     block_keys = keys + ("device_ms",)
@@ -2008,7 +2315,8 @@ def main():
     print("[time] wall s per phase: " + ", ".join(f"{k} {v:.2f}" for k, v in WALL_S.items()))
     report = {"card": info, "ptxas": ptxas, "kernels": comp, "kernels_bwd": comp_bwd,
               "kernels_tiles": comp_tiles, "slice": sl, "tile_lists": tl, "oracle_probe": probe,
-              "export_full": export_full, "training": tr, "guided_training": guided, "cli": cli,
+              "export_full": export_full, "training": tr, "image_prompt": image_prompt,
+              "guided_training": guided, "cli": cli,
               "wall_s": WALL_S}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

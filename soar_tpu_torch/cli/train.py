@@ -1,18 +1,25 @@
 """Two-stage training CLI (port of ``soar_tpu.cli.train``).
 
     python -m soar_tpu_torch.cli.train --synthetic --steps 3 [--device cpu]
-    python -m soar_tpu_torch.cli.train --synthetic --guidance mvdream --mock-guidance
+    python -m soar_tpu_torch.cli.train --synthetic --guidance imagedream --mock-guidance \
+        [--lpips-weights lpips_vgg16.pkl --lambda-vgg 0.1] [--sds-mode split] [--eval]
 
 Stage 0 supervises geometry (normals), stage 1 texture (RGB); stage 1
 starts from the stage-0 parameters with a fresh optimizer, and each stage
 ends with a checkpoint in ``<out>/stage<K>``.  ``--synthetic`` trains the
-procedural fixture (no download).  ``--guidance mvdream --mock-guidance``
-adds the SDS loss after each stage's ``sds_start``, with random full-shape
-networks and text embeddings.  The flags and defaults are the JAX CLI's;
-those of parts not ported yet (ImageDream's image prompt, prompt embeddings
-and with them checkpoint guidance, split SDS, LPIPS, YAML configs,
-reference checkpoints, real captures, multi-device, traces, wandb) stop
-with an error instead of being ignored, and the flags that only shape a
+procedural fixture (no download).  ``--guidance imagedream|mvdream`` adds
+the SDS loss after each stage's ``sds_start``: the networks from
+``--guidance-ckpt`` (a torch ``sd-v2.1-base-4view[-ipmv]`` checkpoint) with
+text embeddings from ``--prompt-embeddings`` (a ``.npz`` of ``cond`` /
+``uncond`` [77, D]) or ``--clip-model-dir``, or random at full shape
+(``--mock-guidance``).  ImageDream's ip tokens are computed once per frame
+before training (stage 1 from ``images_crop``, stage 0 from ``normal_F``)
+and the CLIP tower is then freed.  ``--lpips-weights`` (the JAX CLI's
+LPIPS-VGG16 pickle) adds the normal-LPIPS terms, the VGG RGB term with
+``--lambda-vgg``, and LPIPS to ``--eval``.  The flags and defaults are the
+JAX CLI's; those of parts not ported yet (YAML configs, reference
+checkpoints, real captures, multi-device, traces, wandb) stop with an
+error instead of being ignored, and the flags that only shape a
 real-capture run (``--smpl-model``, ``--num-subdiv``, ``--gen-res``) are not
 defined yet.
 """
@@ -29,11 +36,6 @@ NOT_PORTED = {
     "config": "YAML configs",
     "dataroot": "real-capture loading",
     "import_ckpt": "reference .ckpt import",
-    "prompt": "prompt processing",
-    "prompt_embeddings": "prompt processing",
-    "clip_model_dir": "prompt processing",
-    "guidance_ckpt": "checkpoint guidance, with the prompt embeddings it needs,",
-    "lpips_weights": "LPIPS",
     "multichip": "multi-device training",
     "trace_steps": "profiler traces",
     "wandb": "wandb logging",
@@ -46,6 +48,23 @@ def resolve_stage_cfg(st: int, steps_arg):
 
     n = 1000 if steps_arg is None else steps_arg
     return StageConfig(max_steps=n) if st == 0 else stage1_config(n)
+
+
+def resolve_guidance_kind(kind, *, ckpt, embeddings, clip_dir, mock: bool) -> str:
+    """Gate guidance on its user-supplied weights: an explicit
+    ``--guidance`` without them is an error.  (The JAX CLI's YAML-requested
+    guidance, which degrades to none instead, waits for ``--config``.)"""
+    if kind in (None, "none"):
+        return "none"
+    missing = []
+    if not (ckpt or mock):
+        missing.append("--guidance-ckpt (or --mock-guidance)")
+    if not (embeddings or clip_dir or mock):
+        missing.append("--prompt-embeddings / --clip-model-dir (or --mock-guidance)")
+    if missing:
+        raise SystemExit(f"guidance '{kind}' needs user-supplied weights: "
+                         f"missing {'; '.join(missing)}")
+    return kind
 
 
 def main(argv=None):
@@ -71,16 +90,26 @@ def main(argv=None):
                          "(0 = stage end only); restart with --resume <out>/stage<K>")
     ap.add_argument("--val-every", type=int, default=250)
     ap.add_argument("--wandb", action="store_true")
-    ap.add_argument("--lpips-weights", type=str, default=None)
+    ap.add_argument("--lpips-weights", type=str, default=None,
+                    help="LPIPS-VGG16 pickle (flax variables with numpy leaves, "
+                    "docs/REAL_WEIGHTS.md section 1): the normal-LPIPS terms and the "
+                    "LPIPS eval metric (the VGG RGB term also needs --lambda-vgg > 0)")
+    ap.add_argument("--lambda-vgg", type=float, default=0.0,
+                    help="weight of the VGG/LPIPS RGB loss (the reference's _fs "
+                    "configs use 0.1); needs --lpips-weights")
     ap.add_argument("--trace-steps", type=int, default=0)
     ap.add_argument("--guidance", type=str, default=None,
                     choices=["none", "imagedream", "mvdream"],
-                    help="multi-view SDS guidance (mvdream: text-conditioned; imagedream "
-                    "arrives with the next slice)")
-    ap.add_argument("--prompt", type=str, default=None)
-    ap.add_argument("--prompt-embeddings", type=str, default=None)
-    ap.add_argument("--clip-model-dir", type=str, default=None)
-    ap.add_argument("--guidance-ckpt", type=str, default=None)
+                    help="multi-view SDS guidance; imagedream also conditions on the "
+                    "per-frame GT crop (stage 1) / normal_F (stage 0)")
+    ap.add_argument("--prompt", type=str, default=None,
+                    help="text prompt (encoded with --clip-model-dir)")
+    ap.add_argument("--prompt-embeddings", type=str, default=None,
+                    help=".npz with cond/uncond [77, D] text embeddings")
+    ap.add_argument("--clip-model-dir", type=str, default=None,
+                    help="local SD2.1 text_encoder+tokenizer directory (needs transformers)")
+    ap.add_argument("--guidance-ckpt", type=str, default=None,
+                    help="torch sd-v2.1-base-4view[-ipmv] checkpoint")
     ap.add_argument("--mock-guidance", action="store_true",
                     help="random full-shape guidance networks and text embeddings")
     ap.add_argument("--guidance-image-size", type=int, default=256)
@@ -88,8 +117,9 @@ def main(argv=None):
                     help="guidance networks' compute dtype (the reference runs "
                     "half_precision_weights=true)")
     ap.add_argument("--sds-mode", type=str, default="fused", choices=["split", "fused"],
-                    help="fused: the whole SDS inside the step (split arrives with the "
-                    "next guidance slice)")
+                    help="fused: the whole SDS inside the step; split: the no-grad half "
+                    "(lite gen renders, VAE, UNet target) before the step, which keeps "
+                    "the VAE encode and the distance to the target")
     ap.add_argument("--multichip", action="store_true")
     ap.add_argument("--sds-start", type=int, default=None,
                     help="override the stage's sds_start: steps <= sds_start run "
@@ -108,15 +138,9 @@ def main(argv=None):
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} is not ported yet ({what} arrives "
                      "with a later slice of the port)")
-    if args.guidance == "imagedream":
-        ap.error("--guidance imagedream is not ported yet (its image prompt, the CLIP "
-                 "tower and Resampler, arrives with the next slice of the port)")
-    if args.guidance == "mvdream" and not args.mock_guidance:
-        ap.error("--guidance mvdream needs --mock-guidance (real weights need prompt "
-                 "embeddings, which arrive with the next slice of the port)")
-    if args.sds_mode == "split":
-        ap.error("--sds-mode split is not ported yet (it arrives with the next guidance "
-                 "slice of the port)")
+    args.guidance = resolve_guidance_kind(
+        args.guidance, ckpt=args.guidance_ckpt, embeddings=args.prompt_embeddings,
+        clip_dir=args.clip_model_dir, mock=args.mock_guidance)
     if not args.synthetic:
         ap.error("only --synthetic is ported so far (real captures arrive with a "
                  "later slice)")
@@ -133,6 +157,7 @@ def main(argv=None):
     from ..render.types import RasterConfig
     from ..train.config import TrainConfig
     from ..train.evaluate import evaluate
+    from ..train.lpips import load_lpips, make_lpips_fn
     from ..train.observe import MetricLogger, StepTimer, dump_debug_images
     from ..train.trainer import (
         gt_stack_nbytes,
@@ -160,11 +185,22 @@ def main(argv=None):
     raster = RasterConfig(max_per_tile=args.max_per_tile, composite_dtype=args.composite_dtype)
     stages = {"0": [0], "1": [1], "both": [0, 1]}[args.stage]
 
+    # LPIPS: bf16 convolutions on the loss path; the eval metric is always
+    # float32, comparable to the reference's numbers.
+    lpips_fn = make_lpips_fn(args.lpips_weights, dtype=torch.bfloat16, device=dev)
+    eval_lpips = load_lpips(args.lpips_weights, device=dev) if lpips_fn is not None else None
+    if args.lpips_weights and lpips_fn is None:
+        print(f"warning: LPIPS weights not found at {args.lpips_weights}; "
+              "LPIPS terms disabled")
+
     def _resolve_stage(st):
         stage_cfg = resolve_stage_cfg(st, args.steps)
         if not has_normals:
             stage_cfg = dc.replace(stage_cfg, loss=dc.replace(
                 stage_cfg.loss, normal_F=0.0, normal_B=0.0, normal_mask=0.0))
+        if args.lambda_vgg > 0.0:
+            stage_cfg = dc.replace(stage_cfg, loss=dc.replace(stage_cfg.loss,
+                                                              vgg=args.lambda_vgg))
         if args.sds_start is not None:
             stage_cfg = dc.replace(stage_cfg, sds_start=args.sds_start)
         return stage_cfg
@@ -172,18 +208,43 @@ def main(argv=None):
     # The guidance networks are built once; each stage rebinds its scalars
     # (guidance scale, timestep window) with for_stage.
     base_guidance = None
-    if args.guidance == "mvdream":
+    if args.guidance != "none":
         from ..guidance.build import build_guidance
 
+        text_emb = None
+        if args.prompt_embeddings or args.clip_model_dir:
+            from ..guidance.prompt import PromptProcessor
+
+            text_emb = PromptProcessor(args.prompt or "", embeddings_path=args.prompt_embeddings,
+                                       clip_model_dir=args.clip_model_dir)()
         base_guidance = build_guidance(
             args.guidance, _resolve_stage(stages[0]),
             generator=torch.Generator(device=dev).manual_seed(args.seed + 100),
-            mock=True,
+            ckpt_path=args.guidance_ckpt, text_embeddings=text_emb, mock=args.mock_guidance,
             image_size=args.guidance_image_size, n_view=cfg.n_views,
             dtype=torch.bfloat16 if args.guidance_dtype == "bf16" else torch.float32,
             device=dev,
         )
-        print(f"guidance: {args.guidance} (mock, {args.guidance_dtype})")
+        weights = args.guidance_ckpt or "mock"
+        print(f"guidance: {args.guidance} ({weights}, {args.guidance_dtype})")
+
+    # ImageDream's ip tokens, once per frame for every stage about to run
+    # (stage 1 embeds the GT crops, stage 0 the front normals), then the
+    # CLIP tower and the Resampler are freed before training.  The reference
+    # re-encodes the reference image every step (``imagedream_guidance.py:
+    # 195``).
+    ip_tables = {}
+    if base_guidance is not None and base_guidance.embed_ref is not None:
+        for st in stages:
+            refs = ds.images_crop if st == 1 else (ds.normal_F if has_normals else None)
+            if refs is not None and len(refs):
+                t_ip = time.time()
+                with torch.no_grad():
+                    ip_tables[st] = torch.stack([base_guidance.embed_ref(np.asarray(r, np.float32))
+                                                 for r in refs])
+                print(f"precomputed ip tokens for {len(refs)} frames "
+                      f"(stage {st}, {time.time() - t_ip:.1f}s)")
+        base_guidance.release_image_encoder()
 
     dump_settings = RenderSettings(use_explicit=args.use_explicit, raster=raster)
     global_step_base = 0
@@ -191,12 +252,15 @@ def main(argv=None):
         stage_cfg = _resolve_stage(st)
         guidance_fn = base_guidance.for_stage(stage_cfg) if base_guidance is not None else None
         latent_size = guidance_fn.latent_size if guidance_fn is not None else None
+        ip_table = ip_tables.get(st)
+        split_sds = guidance_fn is not None and args.sds_mode == "split"
         state, opt = init_train_state(params, cfg, seed=args.seed, stage=stage_cfg)
         step_fn = make_train_step(
             model, cfg, stage_cfg, opt,
             gen_size=gen_size, gt_size=ds.image_size, normal_size=normal_size,
             raster=raster, use_explicit=args.use_explicit,
             has_normals=has_normals, has_normal_B=has_normal_B, guidance_fn=guidance_fn,
+            lpips_fn=lpips_fn, split_sds=split_sds,
         )
         logger = MetricLogger(args.out)
         timer = StepTimer()
@@ -209,16 +273,17 @@ def main(argv=None):
         nf = len(ds.train_idx)
         mode = args.gt_cache
         if mode == "auto":
-            if gt_stack_nbytes(ds, model, nf) <= budget:
+            if gt_stack_nbytes(ds, model, nf, ip_table=ip_table) <= budget:
                 mode = "pin"
-            elif gt_stack_nbytes(ds, model, nf, store_u8=True) <= budget:
+            elif gt_stack_nbytes(ds, model, nf, store_u8=True, ip_table=ip_table) <= budget:
                 mode = "pin-u8"
             else:
                 mode = "lru"
         gt_stack = gt_select = gt_pos = None
         if mode in ("pin", "pin-u8"):
             gt_stack, gt_select, gt_pos = make_gt_batch_stack(
-                ds, model, ds.train_idx, store_u8=(mode == "pin-u8"), device=dev)
+                ds, model, ds.train_idx, store_u8=(mode == "pin-u8"), ip_table=ip_table,
+                device=dev)
             print(f"gt-cache: pinned {nf} frames on {dev} ({mode})")
         batch_cache = OrderedDict()
 
@@ -243,12 +308,22 @@ def main(argv=None):
                     batch = batch_cache.get(frame)
                     if batch is None:
                         batch = batch_cache[frame] = make_gt_batch(ds, model, frame, dev)
+                        if ip_table is not None:
+                            batch["ref_ip"] = ip_table[frame]
                         if len(batch_cache) > 32:
                             batch_cache.popitem(last=False)
                     else:
                         batch_cache.move_to_end(frame)
             with timer.phase("step"):
                 draws = sample_step_draws(generator, cfg, latent_size=latent_size)
+                if split_sds and state.step > stage_cfg.sds_start:
+                    # Split SDS: the no-grad half (lite gen renders, VAE, the
+                    # UNet's x0 target) first; the step consumes its target.
+                    lat, c2w, sds_draws = step_fn.sds_prelude(state, batch, draws)
+                    ref = "gt_rgb_crop" if st == 1 else "gt_normal_F"
+                    batch = dict(batch, sds_target=guidance_fn.compute_target(
+                        lat, c2w, state.step, sds_draws, ref_rgb=batch.get(ref),
+                        ref_ip=batch.get("ref_ip")))
                 state, metrics = step_fn(state, batch, draws)
             if it % args.log_every == 0 or it == n_steps - 1:
                 m = {k: round(float(v), 5) for k, v in metrics.items()}
@@ -286,7 +361,7 @@ def main(argv=None):
         res = evaluate(params, model, ds, save_dir=os.path.join(args.out, "test"),
                        settings=RenderSettings(use_explicit=args.use_explicit,
                                                raster=raster),
-                       device=dev)
+                       lpips_fn=eval_lpips, device=dev)
         print("eval:", json.dumps(res))
 
 

@@ -96,11 +96,13 @@ class MultiviewGuidance:
         encode_fn: Callable,
         denoise_fn: Callable,
         text_embeddings: torch.Tensor,  # [2, 77, D] (cond, uncond)
+        image_embed_fn: Optional[Callable] = None,  # ref image -> ip tokens
     ):
         self.cfg = cfg
         self.encode_fn = encode_fn
         self.denoise_fn = denoise_fn
         self.text_embeddings = text_embeddings
+        self.image_embed_fn = image_embed_fn
         self.schedule = DDPMSchedule.stable_diffusion(cfg.num_train_timesteps,
                                                       device=text_embeddings.device)
 
@@ -174,10 +176,12 @@ class MultiviewGuidance:
         }
         # The reference computes a ref/comp_bg composite and then overwrites
         # it with the raw reference image (``imagedream_guidance.py:
-        # 191-195``); the image prompt arrives here as precomputed ip
-        # tokens, so ref_rgb, ref_mask and comp_bg stay in the signature
-        # only.  The uncond half sees zero tokens, not none.
-        del ref_rgb, ref_mask, comp_bg
+        # 191-195``), so ref_mask and comp_bg stay in the signature only.
+        # Precomputed ip tokens (``ref_ip``) win; otherwise ``ref_rgb`` goes
+        # through ``image_embed_fn``.  The uncond half sees zero tokens.
+        del ref_mask, comp_bg
+        if ref_ip is None and ref_rgb is not None and self.image_embed_fn is not None:
+            ref_ip = self.image_embed_fn(ref_rgb)
         if ref_ip is not None:
             context["ip"] = torch.cat([ref_ip[None].expand(V, -1, -1),
                                        torch.zeros((V,) + tuple(ref_ip.shape),

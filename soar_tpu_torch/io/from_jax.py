@@ -16,7 +16,10 @@ numpy arrays (``np.asarray`` on every leaf); nothing here imports JAX.
   and ``field_cfg`` (``dataclasses.asdict`` of the JAX config).
 - the training state's background MLP (``bg_params``).
 - the guidance networks' flax variables (:func:`unet_from_flax`,
-  :func:`vae_from_flax`) and text embeddings.
+  :func:`vae_from_flax`, :func:`clip_vit_from_flax`,
+  :func:`resampler_from_flax`) and text embeddings;
+- LPIPS-VGG16's flax variables (:func:`lpips_from_flax`), as the JAX
+  CLI's ``--lpips-weights`` pickle holds them.
 
 Carrying ``model.skin`` and the field keeps every random or tie-sensitive
 init step (the field's ``jax.random`` tables, the kNN neighbour sets) out
@@ -120,7 +123,8 @@ def background_from_numpy(bg: Dict, device="cuda") -> Dict:
 # The guidance networks' flax variables (``{"params": {...}}`` as nested
 # dicts of numpy arrays) -> the port's ``state_dict`` (LDM keys): the
 # inverse of ``soar_tpu.guidance.networks.convert_unet_torch_params`` /
-# ``convert_vae_torch_params``.  Dense kernels [in, out] -> [out, in]; conv
+# ``convert_vae_torch_params`` (and of the CLIP, Resampler and LPIPS
+# converters).  Dense kernels [in, out] -> [out, in]; conv
 # kernels HWIO -> OIHW; the VAE attention's Dense -> a 1x1 conv; a norm's
 # ``scale`` -> ``weight``.  Every flax leaf is used exactly once (checked
 # here), and ``load_state_dict(strict=True)`` checks that every parameter of
@@ -169,10 +173,14 @@ class _StateDict(dict):
             self.leaves.take(*path, "kernel").T.copy()[:, :, None, None])
         self[key + ".bias"] = torch.as_tensor(self.leaves.take(*path, "bias"))
 
-    def conv(self, path, key):
+    def conv(self, path, key, bias=True):
         k = self.leaves.take(*path, "kernel")  # HWIO
         self[key + ".weight"] = torch.as_tensor(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
-        self[key + ".bias"] = torch.as_tensor(self.leaves.take(*path, "bias"))
+        if bias:
+            self[key + ".bias"] = torch.as_tensor(self.leaves.take(*path, "bias"))
+
+    def raw(self, path, key, fn=lambda a: a):
+        self[key] = torch.as_tensor(np.ascontiguousarray(fn(self.leaves.take(*path))))
 
     def norm(self, path, key):
         self[key + ".weight"] = torch.as_tensor(self.leaves.take(*path, "scale"))
@@ -287,3 +295,73 @@ def vae_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
 def text_embeddings_from_numpy(emb, device="cuda") -> torch.Tensor:
     """The guidance's text embeddings [2, 77, D] (cond, uncond), float32."""
     return torch.as_tensor(np.asarray(emb, np.float32)).to(resolve_device(device))
+
+
+def clip_vit_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """``soar_tpu``'s ``CLIPViT`` variables -> the port's ``CLIPViT``
+    state_dict (open_clip keys without the ``visual.`` prefix).  The tree
+    holds the blocks, ``ln_post`` and ``proj`` of the mode it was made in,
+    and so does the state_dict."""
+    lv = _Leaves(variables)
+    sd = _StateDict(lv)
+    sd.conv(("conv1",), "conv1", bias=False)
+    sd.raw(("class_embedding",), "class_embedding")
+    sd.raw(("positional_embedding",), "positional_embedding")
+    sd.norm(("ln_pre",), "ln_pre")
+    i = 0
+    while lv.has(f"resblock_{i}"):
+        p, key = f"resblock_{i}", f"transformer.resblocks.{i}"
+        sd.norm((p, "ln_1"), key + ".ln_1")
+        sd.raw((p, "attn", "in_proj", "kernel"), key + ".attn.in_proj_weight", np.transpose)
+        sd.raw((p, "attn", "in_proj", "bias"), key + ".attn.in_proj_bias")
+        sd.dense((p, "attn", "out_proj"), key + ".attn.out_proj")
+        sd.norm((p, "ln_2"), key + ".ln_2")
+        sd.dense((p, "c_fc"), key + ".mlp.c_fc")
+        sd.dense((p, "c_proj"), key + ".mlp.c_proj")
+        i += 1
+    if lv.has("ln_post"):
+        sd.norm(("ln_post",), "ln_post")
+    if lv.has("proj"):
+        sd.raw(("proj",), "proj")  # [width, output_dim] in both
+    lv.done("clip_vit_from_flax")
+    return dict(sd)
+
+
+def resampler_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """``soar_tpu``'s ``Resampler`` variables -> the port's ``Resampler``
+    state_dict (IP-Adapter keys without ``image_proj_model.``)."""
+    lv = _Leaves(variables)
+    sd = _StateDict(lv)
+    sd.raw(("latents",), "latents", lambda a: a[None])  # [Q, D] -> [1, Q, D]
+    sd.dense(("proj_in",), "proj_in")
+    sd.dense(("proj_out",), "proj_out")
+    sd.norm(("norm_out",), "norm_out")
+    i = 0
+    while lv.has(f"attn_{i}"):
+        a, f = f"attn_{i}", f"ff_{i}"
+        sd.norm((a, "norm1"), f"layers.{i}.0.norm1")
+        sd.norm((a, "norm2"), f"layers.{i}.0.norm2")
+        for name in ("to_q", "to_kv", "to_out"):
+            sd.dense((a, name), f"layers.{i}.0.{name}", bias=False)
+        sd.norm((f, "norm"), f"layers.{i}.1.0")
+        sd.dense((f, "fc1"), f"layers.{i}.1.1", bias=False)
+        sd.dense((f, "fc2"), f"layers.{i}.1.3", bias=False)
+        i += 1
+    lv.done("resampler_from_flax")
+    return dict(sd)
+
+
+def lpips_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """``soar_tpu``'s ``LPIPS`` variables (``vgg/conv_{i}`` and ``lin_{i}``,
+    the pickle that ``soar_tpu.train.lpips.convert_lpips_params`` writes)
+    -> the port's :class:`soar_tpu_torch.train.lpips.LPIPS` state_dict."""
+    from ..train.lpips import VGG16_CONV_LAYERS
+
+    lv = _Leaves(variables)
+    sd = _StateDict(lv)
+    for i, layer in enumerate(VGG16_CONV_LAYERS):
+        sd.conv(("vgg", f"conv_{i}"), f"vgg.features.{layer}")
+    for i in range(5):
+        sd.raw((f"lin_{i}",), f"lin{i}")
+    lv.done("lpips_from_flax")
+    return dict(sd)

@@ -3,10 +3,10 @@
 
 :func:`evaluate` is the reference's test protocol
 (``system/gaussian_surfel_mvdream.py:527-589``): render each held-out
-frame with its GT camera, whiten the GT outside the mask, compute PSNR and
-skimage's SSIM, write per-frame pngs and ``psnrs.txt`` / ``ssims.txt`` /
-``average.txt`` (LPIPS is nan without converted weights, as in the JAX
-package).  ``save_png`` writes an 8-bit PNG with ``zlib`` and ``struct``
+frame with its GT camera, whiten the GT outside the mask, compute PSNR,
+skimage's SSIM and, given an ``lpips_fn``, LPIPS; write per-frame pngs and
+``psnrs.txt`` / ``ssims.txt`` / ``lpips.txt`` / ``average.txt`` (whose
+LPIPS column is nan without LPIPS weights, as in the JAX package).  ``save_png`` writes an 8-bit PNG with ``zlib`` and ``struct``
 alone, so the port needs no image library; ``try_save_mp4`` uses OpenCV
 when it is installed and reports failure otherwise.
 """
@@ -104,12 +104,13 @@ def evaluate(
     ds,
     save_dir: Optional[str] = None,
     settings=None,
+    lpips_fn=None,
     split: str = "test",
     device="cuda",
 ) -> Dict[str, float]:
-    """PSNR / SSIM over the held-out frames; ``params`` and ``model`` live
-    on ``device``.  LPIPS waits for converted weights and is reported as
-    nan in ``average.txt``."""
+    """PSNR / SSIM (and LPIPS with ``lpips_fn(pred01, gt01) -> float``,
+    :func:`soar_tpu_torch.train.lpips.load_lpips`) over the held-out
+    frames; ``params`` and ``model`` live on ``device``."""
     import torch
 
     from .. import resolve_device
@@ -125,7 +126,7 @@ def evaluate(
     H, W = ds.image_size
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
-    psnrs, ssims, frames = [], [], []
+    psnrs, ssims, lpipss, frames = [], [], [], []
     with torch.no_grad():
         for i in indices:
             batch = make_gt_batch(ds, model, i, device=dev)
@@ -136,6 +137,8 @@ def evaluate(
             gt[~(np.asarray(ds.masks[i]) > 0.5)] = 1.0  # whiten outside the mask
             psnrs.append(float(L.psnr(torch.from_numpy(pred), torch.from_numpy(gt))))
             ssims.append(skimage_ssim(pred, gt))
+            if lpips_fn is not None:
+                lpipss.append(float(lpips_fn(pred, gt)))
             frames.append(pred)
             if save_dir:
                 save_png(os.path.join(save_dir, f"{i}.png"), pred)
@@ -143,10 +146,14 @@ def evaluate(
         "psnr": float(np.mean(psnrs)) if psnrs else float("nan"),
         "ssim": float(np.mean(ssims)) if ssims else float("nan"),
     }
+    if lpipss:
+        out["lpips"] = float(np.mean(lpipss))
     if save_dir and psnrs:
         np.savetxt(os.path.join(save_dir, "psnrs.txt"), np.asarray(psnrs))
         np.savetxt(os.path.join(save_dir, "ssims.txt"), np.asarray(ssims))
+        if lpipss:
+            np.savetxt(os.path.join(save_dir, "lpips.txt"), np.asarray(lpipss))
         with open(os.path.join(save_dir, "average.txt"), "w") as f:
-            f.write(f"{out['psnr']} {out['ssim']} {float('nan')}")
+            f.write(f"{out['psnr']} {out['ssim']} {out.get('lpips', float('nan'))}")
         try_save_mp4(os.path.join(save_dir, "test.mp4"), frames)
     return out

@@ -18,10 +18,15 @@ SDS guidance (:func:`soar_tpu_torch.guidance.build.build_guidance`) joins
 the loss after ``stage.sds_start``; a step at or before it never calls the
 guidance, as the JAX CLI's guidance-free warm-up program does not.  Its
 gradient reaches the renders through ``exp(-3 occ)``
-(:func:`scale_gradient`).  ``sds_via_params`` is the same computation here:
-the weights live in the guidance's modules.  Not ported yet: ``split_sds``
-and LPIPS (``lpips_fn``) wait for the next guidance slice, and view / row
-sharding (``shard_views``, ``shard_gt``) and ``gen_chunk`` for the
+(:func:`scale_gradient`).  ``split_sds`` moves the guidance's no-grad
+half out of the step: ``train_step.sds_prelude`` re-renders the gen views
+forward-only, the caller computes ``batch["sds_target"]`` with
+``guidance_fn.compute_target``, and the step keeps the VAE encode and the
+squared distance to the target.  ``lpips_fn`` adds the normal-LPIPS terms
+and the VGG RGB term (:mod:`soar_tpu_torch.train.lpips`).
+``sds_via_params`` and ``lpips_via_batch`` select the same computation
+here: the weights live in modules.  Not ported yet: view / row sharding
+(``shard_views``, ``shard_gt``) and ``gen_chunk`` wait for the
 multi-device slice; passing any of them raises.  ``remat_gen`` and
 ``remat_gt`` have no meaning in eager PyTorch and are accepted and ignored.
 """
@@ -174,12 +179,20 @@ def make_train_step(
     reference image and mask, the first view's background and
     ``batch["ref_ip"]`` when the batch has it.
 
+    ``lpips_fn(a, b) -> scalar`` takes [H, W, 3] images in [-1, 1]; with
+    it the normal terms gain the LPIPS of the masked normals, and the VGG
+    RGB term joins when its weight is nonzero.
+
+    ``split_sds``: the step's SDS term is ``0.5 * sum((lat - target)^2) /
+    V`` on ``batch["sds_target"]``, which the caller makes with
+    ``train_step.sds_prelude(state, batch, draws) -> (latents, c2w,
+    draws["sds"])`` and ``guidance_fn.compute_target(latents, c2w,
+    state.step, draws["sds"], ref_rgb=..., ref_ip=...)``.
+
     ``train_step.loss_fn(params, bg_params, batch, draws, step)`` returns
     ``(loss, metrics, aux)`` without stepping (``aux`` holds the renders and
     the gen views' background composite)."""
     for name, val, later in (
-        ("split_sds", split_sds, "next guidance"),
-        ("lpips_fn", lpips_fn, "next guidance (LPIPS)"),
         ("shard_views", shard_views, "multi-device"),
         ("shard_gt", shard_gt, "multi-device"),
         ("gen_chunk", gen_chunk, "multi-device"),
@@ -197,7 +210,7 @@ def make_train_step(
     nB_w_on = isinstance(w.normal_B, (tuple, list)) or float(w.normal_B) != 0.0
     use_nB = has_normals and has_normal_B and nB_w_on
 
-    def gen_pass(params, bg_params, frame_idx, draws, attrs):
+    def gen_pass(params, bg_params, frame_idx, draws, attrs, settings=gen_settings):
         """The gen views and their neural-background composite."""
         c2w, fovy = draws["c2w"], draws["fovy"]
         dev = c2w.device
@@ -206,7 +219,7 @@ def make_train_step(
         for v in range(nv):
             cam = camera_from_c2w(c2w[v], fovy[v], fovy[v], znear=0.1, zfar=100.0)
             outs.append(render_view(params, model, cam, gen_size, zeros, frame_idx,
-                                    gen_settings, attrs=attrs))
+                                    settings, attrs=attrs))
         gen = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
         # Neural-bg composite over the gen renders
@@ -265,17 +278,40 @@ def make_train_step(
         if has_normals:
             nmask = batch["gt_normal_mask"] > 1e-5
             loss_nF = 0.2 * L.cos_loss(gt_nF["normal"], batch["gt_normal_F"], nmask, thrsh=0.0)
-            loss = loss + C(w.normal_F) * loss_nF
-            metrics["loss_normal_F"] = loss_nF
             if use_nB:
                 loss_nB = 0.2 * L.cos_loss(gt_nB["normal"], batch["gt_normal_B"], nmask,
                                            thrsh=0.0)
+            if lpips_fn is not None:
+                # LPIPS of the masked normals, shifted to [-1, 1], inside the
+                # normal terms (``gaussian_surfel_mvdream.py:342-393``), with
+                # the reference's quirk: the front pass multiplies by the raw
+                # alpha mask, the back pass by the binarised one.
+                nm_raw = batch["gt_normal_mask"][..., None]
+                nm_bin = nmask[..., None].to(nm_raw.dtype)
+
+                def nlp(pred01, gt01, nm):
+                    return lpips_fn((pred01 * nm - 0.5) * 2.0, (gt01 * nm - 0.5) * 2.0)
+
+                loss_nF = loss_nF + nlp(gt_nF["normal"], batch["gt_normal_F"], nm_raw)
+                if use_nB:
+                    loss_nB = loss_nB + nlp(gt_nB["normal"], batch["gt_normal_B"], nm_bin)
+            loss = loss + C(w.normal_F) * loss_nF
+            metrics["loss_normal_F"] = loss_nF
+            if use_nB:
                 loss = loss + C(w.normal_B) * loss_nB
                 metrics["loss_normal_B"] = loss_nB
                 # Nested in the reference's normal_B branch (``:394-399``).
                 loss_nmask = torch.mean(torch.abs(gt_nF["mask"] - batch["gt_normal_mask"]))
                 loss = loss + C(w.normal_mask) * loss_nmask
                 metrics["loss_normal_mask"] = loss_nmask
+
+        # VGG/LPIPS RGB term (``gaussian_surfel_mvdream.py:401-410``), gated
+        # on its own weight only: the reference nests it under
+        # lambda_normal_B > 0, which the configs that enable it set to 0.
+        if lpips_fn is not None and (isinstance(w.vgg, (tuple, list)) or float(w.vgg) != 0.0):
+            loss_vgg = lpips_fn((gt["render"] - 0.5) * 2.0, (gt_rgb_blended - 0.5) * 2.0)
+            loss = loss + C(w.vgg) * loss_vgg
+            metrics["loss_vgg"] = loss_vgg
 
         # occ supervision: visible (masked) pixels should predict occ -> 1.
         occ_gt = gt["occ"][..., 0]
@@ -326,9 +362,22 @@ def make_train_step(
                 inp = scale_gradient(inp, torch.exp(-3.0 * gen["occ"].detach()))
             ref = ("gt_rgb_crop", "gt_mask_crop") if stage.training_stage == 1 else (
                 "gt_normal_F", "gt_normal_mask")
-            sds_out = guidance_fn(inp, draws["c2w"], step, draws["sds"],
-                                  ref_rgb=batch.get(ref[0]), ref_mask=batch.get(ref[1]),
-                                  comp_bg=bg_rgb[0], ref_ip=batch.get("ref_ip"))
+            if split_sds:
+                # The gradient half; the no-grad target came from the prelude.
+                if "sds_target" not in batch:
+                    raise ValueError("a split-SDS step needs batch['sds_target'] "
+                                     "(train_step.sds_prelude, then guidance_fn.compute_target)")
+                lat = guidance_fn.encode_latents(inp, draws["sds"]["vae_eps"])
+                diff = lat - batch["sds_target"].detach()
+                V = lat.shape[0]
+                # /V: the reference's grad_norm is the autograd of the
+                # /V-scaled recon loss.
+                sds_out = {"loss_sds": 0.5 * torch.sum(diff**2) / V,
+                           "grad_norm": torch.linalg.norm(diff.detach()) / V}
+            else:
+                sds_out = guidance_fn(inp, draws["c2w"], step, draws["sds"],
+                                      ref_rgb=batch.get(ref[0]), ref_mask=batch.get(ref[1]),
+                                      comp_bg=bg_rgb[0], ref_ip=batch.get("ref_ip"))
             loss = loss + C(w.sds) * sds_out["loss_sds"]
             metrics["loss_sds"] = sds_out["loss_sds"]
             if "grad_norm" in sds_out:
@@ -360,7 +409,21 @@ def make_train_step(
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 
+    @torch.no_grad()
+    def sds_prelude(state: TrainState, batch: Dict, draws: Dict):
+        """Split SDS's forward-only half: the gen views rendered ``lite``
+        (no occ pass or curvature; the same main render) from the step's
+        draws and VAE-encoded.  Returns (latents [V, 4, h, w], c2w,
+        draws["sds"])."""
+        params = state.params
+        attrs = None if use_explicit else query_attributes(params, model)
+        gen, comp_rgb, _ = gen_pass(params, state.bg_params, batch["frame_idx"], draws, attrs,
+                                    settings=dataclasses.replace(gen_settings, lite=True))
+        inp = comp_rgb if stage.training_stage == 1 else gen["normal"]
+        return guidance_fn.encode_latents(inp, draws["sds"]["vae_eps"]), draws["c2w"], draws["sds"]
+
     train_step.loss_fn = loss_fn
+    train_step.sds_prelude = sds_prelude if (split_sds and guidance_fn is not None) else None
     return train_step
 
 
@@ -417,13 +480,14 @@ _GT_U8_KEYS = (
 
 
 def make_gt_batch_stack(ds, model: AvatarModel, frames, store_u8: bool = False,
-                        device="cuda"):
+                        ip_table=None, device="cuda"):
     """Every per-frame GT batch stacked and kept on ``device``; returns
     ``(stacked, select_fn, pos_of)`` with ``select_fn(stacked, pos)`` the
     batch of frame ``frames[pos]`` and ``pos_of[frame_idx] = pos``.
     ``store_u8`` stores the image-like keys as uint8 (4x smaller; exact for
-    8-bit-sourced data) and dequantizes them in ``select_fn``.  Assembled
-    on the host and moved to the device once."""
+    8-bit-sourced data) and dequantizes them in ``select_fn``.
+    ``ip_table`` ([F_total, Q, D], indexed by frame) rides along as
+    ``ref_ip``.  Assembled on the host and moved to the device once."""
     frames = [int(f) for f in frames]
     pos_of = {f: i for i, f in enumerate(frames)}
     per_frame = [make_gt_batch(ds, model, f, device="cpu") for f in frames]
@@ -440,6 +504,9 @@ def make_gt_batch_stack(ds, model: AvatarModel, frames, store_u8: bool = False,
                 # Clamp before the cast: 256 would wrap to 0 in uint8.
                 x = torch.clamp(torch.round(x * 255.0), 0.0, 255.0).to(torch.uint8)
             stacked[k] = x.to(device)
+    if ip_table is not None:
+        stacked["ref_ip"] = torch.stack([torch.as_tensor(ip_table[f]).to(torch.float32).cpu()
+                                         for f in frames]).to(device)
     u8_keys = tuple(k for k in _GT_U8_KEYS if store_u8 and k in stacked)
 
     def select(stacked, pos: int) -> Dict:
@@ -456,7 +523,8 @@ def make_gt_batch_stack(ds, model: AvatarModel, frames, store_u8: bool = False,
     return stacked, select, pos_of
 
 
-def gt_stack_nbytes(ds, model: AvatarModel, n_frames: int, store_u8: bool = False) -> int:
+def gt_stack_nbytes(ds, model: AvatarModel, n_frames: int, store_u8: bool = False,
+                    ip_table=None) -> int:
     """Device bytes of :func:`make_gt_batch_stack` for ``n_frames`` frames
     (one host probe batch)."""
     probe = make_gt_batch(ds, model, 0, device="cpu")
@@ -466,4 +534,6 @@ def gt_stack_nbytes(ds, model: AvatarModel, n_frames: int, store_u8: bool = Fals
             if isinstance(leaf, torch.Tensor):
                 n = leaf.numel() * leaf.element_size()
                 total += leaf.numel() if (store_u8 and k in _GT_U8_KEYS) else n
+    if ip_table is not None:
+        total += int(np.prod(tuple(ip_table[0].shape))) * 4
     return total * n_frames

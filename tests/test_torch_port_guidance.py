@@ -29,6 +29,7 @@ from soar_tpu.guidance.manifest import unet_key_manifest, vae_encoder_key_manife
 from soar_tpu.guidance.scheduler import DDPMSchedule as JSchedule
 from soar_tpu.train.config import StageConfig as JStageConfig
 from soar_tpu_torch.guidance import build as tbuild
+from soar_tpu_torch.guidance import clip_vit as tclip
 from soar_tpu_torch.guidance import sds as tsds
 from soar_tpu_torch.guidance.scheduler import DDPMSchedule
 from soar_tpu_torch.io.from_jax import text_embeddings_from_numpy, unet_from_flax, vae_from_flax
@@ -289,6 +290,13 @@ def test_checkpoint_round_trip(tiny_vars, tmp_path):
     sd = {"model.diffusion_model." + k: v for k, v in g.unet.state_dict().items()}
     sd.update({"first_stage_model." + k: v for k, v in g.vae.state_dict().items()})
     sd["first_stage_model.decoder.conv_in.weight"] = torch.zeros(3)  # not read
+    # ImageDream's checkpoint also holds the image towers (a whole open_clip
+    # tower: the penultimate one's weights plus the keys it does not hold).
+    clip = g.image_encoder["clip"]
+    whole = dict(tclip.CLIPViT(clip.cfg, features="pooled").state_dict(), **clip.state_dict())
+    sd.update({"embedder.model.visual." + k: v for k, v in whole.items()})
+    sd.update({"image_proj_model." + k: v
+               for k, v in g.image_encoder["resampler"].state_dict().items()})
     path = str(tmp_path / "tiny.ckpt")
     torch.save({"state_dict": sd}, path)
 
@@ -308,7 +316,9 @@ def test_checkpoint_round_trip(tiny_vars, tmp_path):
 
     g2 = tbuild.build_guidance("imagedream", stage, tiny=True, image_size=32, n_view=V,
                                device="cpu", ckpt_path=path, text_embeddings=text)
-    for a, b in ((g.unet, g2.unet), (g.vae, g2.vae)):
+    for a, b in ((g.unet, g2.unet), (g.vae, g2.vae),
+                 (g.image_encoder["clip"], g2.image_encoder["clip"]),
+                 (g.image_encoder["resampler"], g2.image_encoder["resampler"])):
         for (k, p), (k2, p2) in zip(a.state_dict().items(), b.state_dict().items()):
             assert k == k2 and torch.equal(p, p2), k
 

@@ -229,9 +229,13 @@ def test_warm_steps_never_call_the_guidance(avatar):
     assert "sds" not in draws  # the guidance-free draws are unchanged
     with pytest.raises(ValueError, match="latent_size"):
         step(state, batch, draws)
+    # Split SDS and LPIPS are ported (test_torch_port_lpips.py); sharding
+    # is not.
+    split = ttr.make_train_step(tmodel, cfg, stage, opt, gen_size=GEN, gt_size=SIZE,
+                                normal_size=SIZE, guidance_fn=spy, split_sds=True)
+    assert split.sds_prelude is not None and step.sds_prelude is None
+    ttr.make_train_step(tmodel, cfg, stage, opt, gen_size=GEN, gt_size=SIZE,
+                        normal_size=SIZE, lpips_fn=lambda a, b: a.mean())
     with pytest.raises(NotImplementedError):
         ttr.make_train_step(tmodel, cfg, stage, opt, gen_size=GEN, gt_size=SIZE,
-                            normal_size=SIZE, guidance_fn=spy, split_sds=True)
-    with pytest.raises(NotImplementedError):
-        ttr.make_train_step(tmodel, cfg, stage, opt, gen_size=GEN, gt_size=SIZE,
-                            normal_size=SIZE, lpips_fn=lambda a, b: a)
+                            normal_size=SIZE, shard_views=lambda c: c)

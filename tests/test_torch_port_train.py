@@ -447,7 +447,7 @@ def test_gt_batch_stack_matches_per_frame(avatar):
 # ------------------------------------------------------------------- CLI
 
 
-def test_cli_train_and_render_rot_round_trip(tmp_path, monkeypatch):
+def test_cli_train_and_render_rot_round_trip(tmp_path, monkeypatch, capsys):
     out = str(tmp_path / "run")
     tcli.main(["--synthetic", "--stage", "both", "--steps", "2", "--device", "cpu",
                "--out", out, "--log-every", "1", "--eval"])
@@ -470,12 +470,13 @@ def test_cli_train_and_render_rot_round_trip(tmp_path, monkeypatch):
                "--resume", os.path.join(out, "stage1"), "--log-every", "1"])
     rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
     assert rows[-1]["step"] == 2 and len(rows) == 5
-    for bad in (["--guidance", "imagedream"], ["--guidance", "imagedream", "--mock-guidance"],
-                ["--sds-mode", "split"], ["--guidance", "mvdream"], ["--prompt", "a"],
-                ["--guidance", "mvdream", "--mock-guidance", "--guidance-ckpt", "x"],
+    # Guidance without its weights (checkpoint or mock, and embeddings) is
+    # refused too.
+    for bad in (["--guidance", "imagedream"], ["--guidance", "mvdream"],
+                ["--guidance", "mvdream", "--guidance-ckpt", "x"],
                 ["--gen-res", "256"],
                 ["--wandb"], ["--dataroot", "x"], ["--config", "x.yaml"],
-                ["--trace-steps", "2"], ["--multichip"], ["--lpips-weights", "x"],
+                ["--trace-steps", "2"], ["--multichip"],
                 ["--import-ckpt", "x"], []):
         with pytest.raises(SystemExit):
             tcli.main((["--synthetic"] if bad else []) + bad + ["--device", "cpu",
@@ -493,3 +494,42 @@ def test_cli_train_and_render_rot_round_trip(tmp_path, monkeypatch):
     assert all(np.isfinite(r["loss"]) for r in rows)
     assert all(np.isfinite(r["loss_sds"]) and r["sds_grad_norm"] > 0 for r in rows[1::2])
     assert os.path.exists(os.path.join(gout, "stage1", "avatar.pt"))
+
+    # ImageDream from a checkpoint with prompt embeddings, split SDS, the
+    # LPIPS terms (normals-free synthetic data: the VGG RGB term) and the
+    # LPIPS eval, at the tiny shapes; stage 1, step 1 guided.
+    import pickle
+
+    from soar_tpu_torch.guidance.clip_vit import CLIPViT
+    from soar_tpu_torch.train.lpips import mock_lpips_variables
+
+    g = tbuild.build_guidance("imagedream", tconfig.StageConfig(), tiny=True, image_size=32,
+                              device="cpu")
+    clip = g.image_encoder["clip"]
+    sd = {"model.diffusion_model." + k: v for k, v in g.unet.state_dict().items()}
+    sd.update({"first_stage_model." + k: v for k, v in g.vae.state_dict().items()})
+    sd.update({"embedder.model.visual." + k: v for k, v in dict(
+        CLIPViT(clip.cfg, features="pooled").state_dict(), **clip.state_dict()).items()})
+    sd.update({"image_proj_model." + k: v
+               for k, v in g.image_encoder["resampler"].state_dict().items()})
+    ckpt = str(tmp_path / "ipmv.ckpt")
+    torch.save({"state_dict": sd}, ckpt)
+    emb = str(tmp_path / "emb.npz")
+    rng = np.random.RandomState(0)
+    np.savez(emb, cond=rng.randn(77, 16), uncond=rng.randn(77, 16))
+    lp = str(tmp_path / "lpips_vgg16.pkl")
+    with open(lp, "wb") as f:
+        pickle.dump(mock_lpips_variables(0), f)
+    iout = str(tmp_path / "imagedream")
+    capsys.readouterr()
+    tcli.main(["--synthetic", "--stage", "1", "--steps", "2", "--sds-start", "0",
+               "--guidance", "imagedream", "--guidance-ckpt", ckpt, "--prompt-embeddings", emb,
+               "--lpips-weights", lp, "--lambda-vgg", "0.1", "--sds-mode", "split", "--eval",
+               "--guidance-image-size", "32", "--device", "cpu", "--out", iout,
+               "--log-every", "1", "--dump-every", "0", "--val-every", "0"])
+    assert "precomputed ip tokens for 8 frames (stage 1" in capsys.readouterr().out
+    rows = [json.loads(line) for line in open(os.path.join(iout, "metrics.jsonl"))]
+    assert [("loss_sds" in r, "loss_vgg" in r) for r in rows] == [(False, True), (True, True)]
+    assert all(np.isfinite(r[k]) for r in rows for k in r if k != "stage")
+    avg = open(os.path.join(iout, "test", "average.txt")).read().split()
+    assert os.path.exists(os.path.join(iout, "test", "lpips.txt")) and np.isfinite(float(avg[2]))
