@@ -86,7 +86,21 @@
    ``average.txt``, the first guided step's ``loss_sds`` equal within
    1e-4 relative); ``--guidance mvdream --mock-guidance
    --prompt-embeddings <seeded npz>``.
-12. Prints the wall seconds of each phase (``[time]``), a
+12. The real-capture path (``[real capture]``), in one temporary directory:
+   ``data.mock_capture`` writes the 20-frame 512x512 capture of the
+   procedural body ``test:10,7,28`` on the card (GT without truncation,
+   covered); ``data.dataset.load_sequence`` loads it (shapes, the w2c row
+   flip, every decoded PNG equal to the uint8 image written); ``cli.train
+   --dataroot ... --num-subdiv 3 --gen-res 256 --guidance imagedream
+   --mock-guidance --lpips-weights <pickle> --stage both --steps 8
+   --sds-start 0 --eval`` at full width (125,664 surfels, the full field
+   distilled 1000 steps), counted (13 forward and 8 backward launches in
+   every step), with finite losses, one step under host_ops (no op on the
+   CPU) and one profiled, ms/step per stage, ``real_setup`` and
+   distillation seconds, peak memory and the eval's PSNR/SSIM/LPIPS
+   (reported, not gated); then ``cli.render_rot`` and ``cli.export_mesh``
+   with the same capture flags on its stage-1 checkpoint.
+13. Prints the wall seconds of each phase (``[time]``), a
    ``{"kernels": [...]}`` line (the block composites with the summed
    device ms and bound of their recorded main-path launches,
    ``main_path_ms`` and ``main_path_bound_ms``, and their launches per step
@@ -2122,6 +2136,249 @@ def run_cli(device, lpips_path):
             "prompt_embeddings_rows": rows_emb}
 
 
+# The real-capture phase: the round-5 evidence capture (20 frames of 512x512,
+# the procedural body test:10,7,28, GT avatar subdivided once), trained at the
+# full width of the production step (3 subdivisions: 125,664 surfels).
+REAL_FRAMES, REAL_SIZE, REAL_BODY_DIMS, REAL_SUBDIV = 20, 512, (10, 7, 28), 3
+REAL_STEPS = 8  # per stage; cut here first if the script outgrows its time
+# The GT renders' per-tile capacity: the evidence capture's one-off K=1024
+# (outputs/evidence_r5/README.md).  At mock_capture's default of 512 its
+# frame 0 drops 2,376 splats, in the JAX package's script as in the port.
+REAL_GT_K = 1024
+# Calls of a stage-1 step (counted from 0) run under host_ops and the
+# profiler; they are left out of the ms/step median.
+REAL_HOST_OPS_CALL, REAL_PROFILE_CALL = 3, 4
+
+
+def instrument_train_steps(record):
+    """Wraps ``trainer.make_train_step`` (cli.train looks it up at each
+    call) so that every step it makes records, per call, the composite
+    launches it made and its synced wall ms; a stage-1 step's call
+    ``REAL_HOST_OPS_CALL`` runs under :func:`host_ops` and call
+    ``REAL_PROFILE_CALL`` under :func:`profile_view`.  Returns the undo."""
+    from soar_tpu_torch.render.block_composite import composite_block as bc
+    from soar_tpu_torch.train import trainer
+
+    make = trainer.make_train_step
+
+    def make_counted(*args, **kwargs):
+        step_fn = make(*args, **kwargs)
+        calls = []
+        record["stages"].append(calls)
+
+        def step(state, batch, draws):
+            f0, b0 = bc.launches, bc.bwd_launches
+            n, stage1 = len(calls), len(record["stages"]) == 2
+            out = []
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if stage1 and n == REAL_HOST_OPS_CALL:
+                record["host_ops"] = host_ops(lambda: out.append(step_fn(state, batch, draws)))
+            elif stage1 and n == REAL_PROFILE_CALL:
+                record["profile"] = profile_view(
+                    lambda: out.append(step_fn(state, batch, draws)))
+            else:
+                out.append(step_fn(state, batch, draws))
+            torch.cuda.synchronize()
+            calls.append({"ms": 1e3 * (time.perf_counter() - t0),
+                          "fwd": bc.launches - f0, "bwd": bc.bwd_launches - b0})
+            return out[0]
+
+        step.loss_fn, step.sds_prelude = step_fn.loss_fn, step_fn.sds_prelude
+        return step
+
+    trainer.make_train_step = make_counted
+
+    def undo():
+        trainer.make_train_step = make
+    return undo
+
+
+def time_calls(module, name, record):
+    """Wraps ``module.name`` so that each call's synced wall seconds are
+    appended to ``record[name]``; returns the undo."""
+    fn = getattr(module, name)
+
+    def timed_call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        record.setdefault(name, []).append(time.perf_counter() - t0)
+        return out
+
+    setattr(module, name, timed_call)
+    return lambda: setattr(module, name, fn)
+
+
+def run_real_capture(device, lpips_path):
+    """The real-capture path in one temporary directory: (a) the capture
+    written on the card by ``data.mock_capture``; (b) loaded by
+    ``data.dataset.load_sequence``, every PNG decoded equal to the uint8
+    image ``save_png`` was given; (c) ``cli.train --dataroot`` through
+    both stages at full width with mock ImageDream guidance and LPIPS,
+    counted (13 forward and 8 backward composite launches a step), one step
+    under host_ops and one profiled; (d) ``cli.render_rot`` and
+    ``cli.export_mesh`` on its checkpoint with the same capture flags."""
+    from soar_tpu_torch.avatar import state as avatar_state
+    from soar_tpu_torch.cli import common, export_mesh, render_rot
+    from soar_tpu_torch.data import dataset, mock_capture
+    from soar_tpu_torch.io.png import read_png
+    from soar_tpu_torch.render.block_composite import composite_block as bc
+
+    rep = {}
+    with tempfile.TemporaryDirectory() as d:
+        cap = os.path.join(d, "capture")
+        # ---- (a) the capture, written on the card
+        written = {}
+        with timed("real capture: write"):
+            t0 = time.perf_counter()
+            info = mock_capture.make_capture(cap, REAL_FRAMES, REAL_SIZE, *REAL_BODY_DIMS,
+                                             subdiv=1, gt_k=REAL_GT_K, device=device,
+                                             written=written)
+            write_s = time.perf_counter() - t0
+        cov = info["coverage"]
+        check(len(written) == 4 * REAL_FRAMES and min(cov) >= 0.01,
+              f"real capture: {len(written)} PNGs written, coverage {cov}")
+        body = "test:" + ",".join(str(x) for x in REAL_BODY_DIMS)
+        print(f"[real capture] mock_capture --frames {REAL_FRAMES} --size {REAL_SIZE} "
+              f"--joints {REAL_BODY_DIMS[0]} --segments {REAL_BODY_DIMS[1]} --ring "
+              f"{REAL_BODY_DIMS[2]} --subdiv 1 --gt-k {REAL_GT_K} on the card: {write_s:.3f} s; "
+              f"GT without truncation (overflow 0 on every frame, K={REAL_GT_K}), coverage "
+              f"{min(cov):.4f}-{max(cov):.4f} (probe {max(info['probe_coverage'].values()):.4f}), "
+              f"transl z {info['transl_z']:+.3f}, GT avatar {info['surfels']} surfels")
+
+        # ---- (b) loaded back
+        with timed("real capture: load"):
+            t0 = time.perf_counter()
+            ds = dataset.load_sequence(cap)
+            load_s = time.perf_counter() - t0
+        n_png = sum(len([f for f in os.listdir(os.path.join(cap, sub)) if f.endswith(".png")])
+                    for sub in ("images", "masks", "normal_F", "normal_B"))
+        S, F = REAL_SIZE, REAL_FRAMES
+        shapes = {k: getattr(ds, k).shape for k in ("images", "masks", "normal_F", "normal_B",
+                                                     "normal_mask", "images_crop", "masks_crop")}
+        check(shapes == {"images": (F, S, S, 3), "masks": (F, S, S), "normal_F": (F, S, S, 3),
+                         "normal_B": (F, S, S, 3), "normal_mask": (F, S, S),
+                         "images_crop": (F, 512, 512, 3), "masks_crop": (F, 512, 512)},
+              f"real capture: loaded shapes {shapes}")
+        check(n_png == 4 * F and np.array_equal(ds.w2c, np.diag([1, -1, -1, 1]).astype(np.float32)),
+              f"real capture: {n_png} PNGs, w2c {ds.w2c.tolist()} (want the row 1:3 flip)")
+        with timed("real capture: decode check"):
+            bad = [p for p, u8 in written.items() if not np.array_equal(read_png(p), u8)]
+        check(not bad, f"real capture: decoded PNGs differ from what was written: {bad[:4]}")
+        print(f"[real capture] load_sequence: {n_png} PNGs in {load_s:.3f} s (crops included); "
+              f"shapes {json.dumps({k: list(v) for k, v in shapes.items()})}; w2c rows 1:3 "
+              f"flipped; all {len(written)} decoded PNGs equal the uint8 images written, bit "
+              "for bit")
+        rep.update(write_s=write_s, load_s=load_s, pngs=n_png, coverage=cov)
+        del ds, written
+
+        # ---- (c) the training CLI through both stages
+        out = os.path.join(d, "run")
+        argv = ["--dataroot", cap, "--smpl-model", body, "--num-subdiv", str(REAL_SUBDIV),
+                "--gen-res", "256", "--guidance", "imagedream", "--mock-guidance",
+                "--lpips-weights", lpips_path, "--stage", "both", "--steps", str(REAL_STEPS),
+                "--sds-start", "0", "--eval", "--log-every", "1", "--device", device,
+                "--out", out]
+        record = {"stages": []}
+        undo = [instrument_train_steps(record), time_calls(common, "real_setup", record),
+                time_calls(avatar_state, "reset_field", record)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bc.launches = 0
+        bc.bwd_launches = 0
+        try:
+            with timed("real capture: cli.train"):
+                secs, text, rows, _ = run_train_cli(argv)
+        finally:
+            for u in undo:
+                u()
+        fwd, bwd = bc.launches, bc.bwd_launches
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        calls = record["stages"]
+        check(len(calls) == 2 and all(len(c) == REAL_STEPS for c in calls),
+              f"real capture: step calls per stage {[len(c) for c in calls]}")
+        per_step = {(c["fwd"], c["bwd"]) for st in calls for c in st}
+        check(per_step == {(FWD_PER_STEP, BWD_PER_STEP)},
+              f"real capture: composite launches per step {per_step}, want "
+              f"{(FWD_PER_STEP, BWD_PER_STEP)}")
+        n_steps = 2 * REAL_STEPS
+        check(bwd == BWD_PER_STEP * n_steps and fwd >= FWD_PER_STEP * n_steps,
+              f"real capture: {fwd} forward, {bwd} backward launches in the CLI run")
+        check(len(rows) == n_steps, f"real capture: {len(rows)} metrics rows")
+        for r in rows:
+            check(all(np.isfinite(r[k]) for k in ("loss", "loss_normal_F", "loss_normal_B")),
+                  f"real capture: a loss is not finite: {r}")
+            check("loss_sds" not in r or np.isfinite(r["loss_sds"]),
+                  f"real capture: loss_sds not finite: {r}")
+        guided = [[("loss_sds" in r) for r in rows if r["stage"] == st] for st in (0, 1)]
+        check(guided == [[False] + [True] * (REAL_STEPS - 1)] * 2,
+              f"real capture: guided rows {guided} (sds-start 0: from each stage's step 1)")
+        cpu_compute, cpu_moves, n_ops, n_syncs = record["host_ops"]
+        check(not cpu_compute, f"real capture: an op of a step computed on the CPU: {cpu_compute}")
+        prof = record["profile"]
+        check(prof["device_busy_ms"] > 0 and prof["composite_fwd_ms"] > 0
+              and prof["composite_bwd_ms"] > 0, "real capture: the profiler saw no kernel")
+        skip = {REAL_HOST_OPS_CALL, REAL_PROFILE_CALL}
+        ms = [float(np.median([c["ms"] for i, c in enumerate(st) if i > 0
+                               and not (s == 1 and i in skip)])) for s, st in enumerate(calls)]
+        prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["profiled_wall_ms"]
+        check(f"precomputed ip tokens for {F} frames (stage 0" in text
+              and f"precomputed ip tokens for {F} frames (stage 1" in text,
+              "real capture: no precomputed-ip-tokens lines for both stages")
+        avg = [float(x) for x in open(os.path.join(out, "test", "average.txt")).read().split()]
+        check(len(avg) == 3 and all(np.isfinite(avg)), f"real capture: average.txt {avg}")
+        setup_s, distill_s = record["real_setup"][0], record["reset_field"][0]
+        dropped = [r["raster_dropped"] for r in rows]
+        capped = [r["raster_capped"] for r in rows]
+        print(f"[real capture] cli.train {' '.join(a if a != lpips_path else '<pickle>' for a in argv[:-4])}"
+              f": {secs:.2f} s; real_setup {setup_s:.3f} s (field distillation, 1000 steps, "
+              f"{distill_s:.3f} s); ms/step (synced, median after the first) stage 0 "
+              f"{ms[0]:.3f}, stage 1 {ms[1]:.3f}; per step {[round(c['ms'], 3) for c in calls[0]]}"
+              f" and {[round(c['ms'], 3) for c in calls[1]]}; launches fwd {fwd}, bwd {bwd} "
+              f"({FWD_PER_STEP} and {BWD_PER_STEP} in every step; the rest the eval's renders); "
+              f"raster_dropped {min(dropped):.0f}-{max(dropped):.0f}, raster_capped "
+              f"{min(capped):.0f}-{max(capped):.0f}; peak memory {peak_gib:.3f} GiB")
+        print(f"[real capture] stage-1 step: {n_ops} aten ops, {n_syncs} host syncs, none "
+              f"computed on the CPU (transfers {cpu_moves}); profiled: device busy "
+              f"{prof['device_busy_ms']:.3f} ms in {prof['device_kernels']} device ops, wall "
+              f"{prof['profiled_wall_ms']:.3f} ms, idle share {prof['idle_share']:.4f}")
+        print(f"[real capture] eval after {REAL_STEPS} + {REAL_STEPS} steps (test frames, "
+              f"reported, not gated): PSNR {avg[0]:.4f}, SSIM {avg[1]:.4f}, LPIPS {avg[2]:.4f}")
+        print("[real capture] last step's metrics " + json.dumps(rows[-1]))
+        rep.update(cli_s=secs, real_setup_s=setup_s, distill_s=distill_s, ms_per_step=ms,
+                   step_ms=[[c["ms"] for c in st] for st in calls], launches_fwd=fwd,
+                   launches_bwd=bwd, rows=rows, peak_memory_gib=peak_gib, profile=prof,
+                   aten_ops=n_ops, host_syncs=n_syncs, average=avg)
+
+        # ---- (d) the turntable and the mesh from its checkpoint
+        flags = ["--dataroot", cap, "--smpl-model", body, "--num-subdiv", str(REAL_SUBDIV),
+                 "--device", device]
+        ckpt = os.path.join(out, "stage1")
+        rot = os.path.join(d, "rot")
+        with timed("real capture: render_rot"):
+            t0 = time.perf_counter()
+            render_rot.main(flags + ["--ckpt", ckpt, "--num-views", "2", "--out", rot])
+            rot_s = time.perf_counter() - t0
+        pngs = sorted(f for f in os.listdir(rot) if f.endswith(".png"))
+        shapes = {read_png(os.path.join(rot, f)).shape for f in pngs}
+        check(len(pngs) == 8 and shapes == {(S, S, 3)}, f"real capture: render_rot {pngs} {shapes}")
+        obj = os.path.join(d, "mesh.obj")
+        with timed("real capture: export_mesh"):
+            t0 = time.perf_counter()
+            stats = export_mesh.main(flags + ["--ckpt", ckpt, "--field-attrs", "--resolution",
+                                              str(EXPORT_RESOLUTION), "--out", obj])
+            export_s = time.perf_counter() - t0
+        check(read_obj_counts(obj) == (stats["verts"], stats["faces"]) and stats["faces"] > 100,
+              f"real capture: export {stats}")
+        print(f"[real capture] render_rot --ckpt stage1 --num-views 2: {rot_s:.3f} s, {len(pngs)} "
+              f"PNGs of {S}x{S}; export_mesh --ckpt stage1 --field-attrs --resolution "
+              f"{EXPORT_RESOLUTION}: {export_s:.3f} s, {stats['verts']} vertices, "
+              f"{stats['faces']} faces read back")
+        rep.update(render_rot_s=rot_s, export_s=export_s, export=stats)
+    return rep
+
+
 def ptxas_summary(log):
     """Registers and spill bytes per kernel instance from an ``-Xptxas -v``
     log, keyed by the instance's template arguments (C=7 for
@@ -2244,6 +2501,8 @@ def main():
     torch.cuda.empty_cache()
     with timed("cli and export"):
         cli = run_cli("cuda", lpips_path)
+    torch.cuda.empty_cache()
+    real = run_real_capture("cuda", lpips_path)
     tmp.cleanup()
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
@@ -2258,6 +2517,7 @@ def main():
         "launches": tr["launches_fwd"],
         "launches_turntable": sl["launches"],
         "launches_guided_train": guided["launches_fwd"],
+        "launches_real_capture_cli": real["launches_fwd"],
         "max_abs_err": max(c["max_abs_err"] for c in comp),
         "ms": comp[0]["ms"],
         "plain_ms": comp[0]["plain_ms"],
@@ -2278,6 +2538,7 @@ def main():
         "replaces": "soar_tpu/render/block_composite.py:226",
         "launches": tr["launches_bwd"],
         "launches_guided_train": guided["launches_bwd"],
+        "launches_real_capture_cli": real["launches_bwd"],
         "max_abs_err": max(c["max_abs_err"] for c in comp_bwd),
         "ms": comp_bwd[0]["ms"],
         "plain_ms": comp_bwd[0]["plain_ms"],
@@ -2316,7 +2577,7 @@ def main():
     report = {"card": info, "ptxas": ptxas, "kernels": comp, "kernels_bwd": comp_bwd,
               "kernels_tiles": comp_tiles, "slice": sl, "tile_lists": tl, "oracle_probe": probe,
               "export_full": export_full, "training": tr, "image_prompt": image_prompt,
-              "guided_training": guided, "cli": cli,
+              "guided_training": guided, "cli": cli, "real_capture": real,
               "wall_s": WALL_S}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

@@ -1,13 +1,17 @@
 """SMPL-family body model and LBS (port of ``soar_tpu.body.model``).
 
 ``lbs`` returns vertices, joints and the per-joint 4x4 affines ``A`` that the
-avatar re-skinning needs.  The npz/pkl loaders and the 144-joint landmark
-output are not ported yet; the procedural :func:`make_test_body` covers the
-ported paths without any download.
+avatar re-skinning needs; :func:`smplx_forward_full` adds the SMPL-X
+landmark joints (144 in all).  Bodies come from the official SMPL-X
+``.npz`` (:func:`load_smplx_npz`) or legacy SMPL ``.pkl``
+(:func:`load_smpl_pkl`), both user-supplied and never vendored, or from the
+procedural :func:`make_test_body`, which needs no download.
 """
 
 from __future__ import annotations
 
+import math
+import os
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -27,6 +31,14 @@ class BodyModel(NamedTuple):
     faces: torch.Tensor  # [F, 3] int64
     num_betas: int
     pose_mean: Optional[torch.Tensor] = None  # [J*3] additive mean pose
+    # SMPL-X landmark tables (None for SMPL and procedural bodies): the extra
+    # vertex joints and the face landmarks' barycentric tables that extend
+    # the 55 kinematic joints to the smplx package's 144.
+    extra_joint_idxs: Optional[torch.Tensor] = None  # [21] vertex ids
+    lmk_faces_idx: Optional[torch.Tensor] = None  # [51] static face landmarks
+    lmk_bary_coords: Optional[torch.Tensor] = None  # [51, 3]
+    dyn_lmk_faces_idx: Optional[torch.Tensor] = None  # [79, 17] contour table
+    dyn_lmk_bary_coords: Optional[torch.Tensor] = None  # [79, 17, 3]
 
     @property
     def num_joints(self) -> int:
@@ -203,6 +215,195 @@ def _assemble_lbs_inputs(model: BodyModel, params: Dict[str, torch.Tensor]):
     if transl is not None:
         transl = _to_batch(transl, B, 3)
     return shape_components, full_pose, transl
+
+
+# The smplx package's extra vertex joints of the SMPL-X topology, in its
+# VertexJointSelector order: face 5, feet 6, finger tips left then right 5.
+SMPLX_EXTRA_JOINT_VERTEX_IDS = (
+    9120,  # nose
+    9929,  # reye
+    9448,  # leye
+    616,  # rear
+    6,  # lear
+    5770,  # LBigToe
+    5780,  # LSmallToe
+    8846,  # LHeel
+    8463,  # RBigToe
+    8474,  # RSmallToe
+    8635,  # RHeel
+    5361,  # lthumb
+    4933,  # lindex
+    5058,  # lmiddle
+    5169,  # lring
+    5286,  # lpinky
+    8079,  # rthumb
+    7669,  # rindex
+    7794,  # rmiddle
+    7905,  # rring
+    8022,  # rpinky
+)
+
+
+def vertices2landmarks(
+    vertices: torch.Tensor,  # [B, V, 3]
+    faces: torch.Tensor,  # [F, 3]
+    lmk_faces_idx: torch.Tensor,  # [L] or [B, L]
+    lmk_bary_coords: torch.Tensor,  # [L, 3] or [B, L, 3]
+) -> torch.Tensor:
+    """Barycentric landmark interpolation -> [B, L, 3]."""
+    B = vertices.shape[0]
+    if lmk_faces_idx.ndim == 1:
+        lmk_faces_idx = lmk_faces_idx[None].expand(B, -1)
+        lmk_bary_coords = lmk_bary_coords[None].expand(B, -1, -1)
+    lmk_faces = faces[lmk_faces_idx]  # [B, L, 3] vertex ids
+    batch = torch.arange(B, device=vertices.device)[:, None, None]
+    lmk_vertices = vertices[batch, lmk_faces]  # [B, L, 3, 3]
+    return torch.einsum("blfi,blf->bli", lmk_vertices, lmk_bary_coords)
+
+
+def _neck_y_bucket(full_pose: torch.Tensor, parents) -> torch.Tensor:
+    """Dynamic-contour table row from the neck chain's y rotation: the
+    axis-angle rotations along the chain from joint 12 to the root
+    accumulated, turned into a y Euler angle, clamped and rounded (half to
+    even, as ``jnp.round``) to a bucket in [0, 78]."""
+    chain = []
+    j = 12
+    while j != -1:
+        chain.append(j)
+        j = parents[j]
+    B = full_pose.shape[0]
+    aa = full_pose.reshape(B, -1, 3)[:, chain]
+    rots = batch_rodrigues(aa.reshape(-1, 3)).reshape(B, -1, 3, 3)
+    rel = torch.eye(3, dtype=full_pose.dtype, device=full_pose.device).expand(B, 3, 3)
+    for i in range(len(chain)):
+        rel = torch.einsum("bij,bjk->bik", rots[:, i], rel)
+    # rot_mat_to_euler: y = atan2(-R[2,0], sqrt(R[0,0]^2 + R[1,0]^2)).
+    y = torch.atan2(-rel[:, 2, 0], torch.sqrt(rel[:, 0, 0] ** 2 + rel[:, 1, 0] ** 2))
+    y_deg = torch.round(torch.clamp_max(-y * 180.0 / math.pi, 39.0)).to(torch.int64)
+    neg_vals = torch.where(y_deg < -39, torch.full_like(y_deg, 78), 39 - y_deg)
+    return torch.where(y_deg < 0, neg_vals, y_deg)
+
+
+def smplx_forward_full(
+    model: BodyModel, params: Dict[str, torch.Tensor]
+) -> Tuple[LBSOutput, torch.Tensor]:
+    """Forward returning ``(LBSOutput, joints144)``: [0:55] kinematic,
+    [55:76] extra vertex joints, [76:127] static face landmarks, [127:144]
+    the dynamic face contour.  Needs the landmark tables that
+    :func:`load_smplx_npz` reads from a real SMPL-X npz.  The landmarks are
+    interpolated on the translated vertices: barycentric weights sum to 1,
+    so that equals translating the untranslated landmarks."""
+    if model.extra_joint_idxs is None or model.lmk_faces_idx is None:
+        raise ValueError(
+            "smplx_forward_full needs the SMPL-X landmark tables "
+            "(extra_joint_idxs / lmk_*); load the body via load_smplx_npz"
+        )
+    shape_components, full_pose, transl = _assemble_lbs_inputs(model, params)
+    out = lbs(model, shape_components, full_pose, transl)
+    extra = out.vertices[:, model.extra_joint_idxs]
+    static = vertices2landmarks(out.vertices, model.faces, model.lmk_faces_idx,
+                                model.lmk_bary_coords)
+    parts = [out.joints, extra, static]
+    if model.dyn_lmk_faces_idx is not None:
+        bucket = _neck_y_bucket(full_pose, model.parents)
+        parts.append(vertices2landmarks(out.vertices, model.faces,
+                                        model.dyn_lmk_faces_idx[bucket],
+                                        model.dyn_lmk_bary_coords[bucket]))
+    return out, torch.cat(parts, dim=1)
+
+
+def _to_device(arrays: Dict[str, Optional[np.ndarray]], dev) -> Dict:
+    return {k: None if v is None else torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+            for k, v in arrays.items()}
+
+
+def load_smplx_npz(
+    path: str, num_betas: int = 10, num_expression: int = 10, device="cuda"
+) -> BodyModel:
+    """The official SMPL-X ``.npz`` (e.g. SMPLX_NEUTRAL.npz; user-supplied,
+    https://smpl-x.is.tue.mpg.de/).  Keeps the first ``num_betas`` of its
+    300 shape and the first ``num_expression`` of its 100 expression
+    directions, posedirs as [P, V*3], the MANO hand means as ``pose_mean``
+    (flat_hand_mean=False) and, with 55 joints, the landmark tables."""
+    dev = resolve_device(device)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"SMPL-X model file not found: {path}. Download from "
+            "https://smpl-x.is.tue.mpg.de/ (proprietary, not vendored)."
+        )
+    with np.load(path, allow_pickle=True) as data:
+        v_template = np.asarray(data["v_template"], np.float32)
+        shapedirs_all = np.asarray(data["shapedirs"], np.float32)
+        if shapedirs_all.shape[-1] >= 400:
+            shapedirs = np.concatenate(
+                [shapedirs_all[..., :num_betas],
+                 shapedirs_all[..., 300 : 300 + num_expression]], axis=-1)
+        else:
+            shapedirs = shapedirs_all[..., : num_betas + num_expression]
+        posedirs = np.asarray(data["posedirs"], np.float32)
+        posedirs = posedirs.reshape(-1, posedirs.shape[-1]).T  # [V, 3, P] -> [P, V*3]
+        J_regressor = np.asarray(data["J_regressor"], np.float32)
+        weights = np.asarray(data["weights"], np.float32)
+        parents = np.asarray(data["kintree_table"], np.int64)[0].copy()
+        parents[0] = -1
+        faces = np.asarray(data["f"], np.int64)
+        J = len(parents)
+        # flat_hand_mean=False: the MANO hand means are added to the hand
+        # segments (joints 25-39 left, 40-54 right); the others are 0.
+        pose_mean = None
+        if "hands_meanl" in data and J == 55:
+            pose_mean = np.zeros((J * 3,), np.float32)
+            pose_mean[25 * 3 : 40 * 3] = np.asarray(data["hands_meanl"], np.float32).reshape(-1)
+            pose_mean[40 * 3 : 55 * 3] = np.asarray(data["hands_meanr"], np.float32).reshape(-1)
+        lmk = dict.fromkeys(("extra_joint_idxs", "lmk_faces_idx", "lmk_bary_coords",
+                             "dyn_lmk_faces_idx", "dyn_lmk_bary_coords"))
+        if "lmk_faces_idx" in data and J == 55:
+            lmk["lmk_faces_idx"] = np.asarray(data["lmk_faces_idx"], np.int64)
+            lmk["lmk_bary_coords"] = np.asarray(data["lmk_bary_coords"], np.float32)
+            lmk["extra_joint_idxs"] = np.asarray(SMPLX_EXTRA_JOINT_VERTEX_IDS, np.int64)
+            if "dynamic_lmk_faces_idx" in data:
+                lmk["dyn_lmk_faces_idx"] = np.asarray(data["dynamic_lmk_faces_idx"], np.int64)
+                lmk["dyn_lmk_bary_coords"] = np.asarray(data["dynamic_lmk_bary_coords"],
+                                                        np.float32)
+    t = _to_device(dict(v_template=v_template, shapedirs=shapedirs, posedirs=posedirs,
+                        J_regressor=J_regressor, lbs_weights=weights, faces=faces,
+                        pose_mean=pose_mean, **lmk), dev)
+    return BodyModel(parents=tuple(int(p) for p in parents), num_betas=num_betas, **t)
+
+
+def load_smpl_pkl(path: str, num_betas: int = 10, device="cuda") -> BodyModel:
+    """A legacy SMPL ``.pkl`` (basicModel_*_lbs_10_207_0_v1.0.0.pkl;
+    user-supplied, https://smpl.is.tue.mpg.de/): 24 joints, no expression
+    directions.  Array-likes are read with ``np.array``, a sparse
+    ``J_regressor`` through its ``toarray()``."""
+    import pickle
+
+    dev = resolve_device(device)
+    if not os.path.exists(path):
+        raise FileNotFoundError(
+            f"SMPL model file not found: {path} (download from "
+            "https://smpl.is.tue.mpg.de/; proprietary, not vendored)"
+        )
+    with open(path, "rb") as f:
+        data = pickle.load(f, encoding="latin1")
+
+    def arr(x, dtype=np.float32):
+        if hasattr(x, "toarray"):  # a scipy sparse matrix
+            x = x.toarray()
+        return np.array(x, dtype=dtype)
+
+    posedirs = arr(data["posedirs"])
+    parents = np.asarray(data["kintree_table"], np.int64)[0].copy()
+    parents[0] = -1
+    t = _to_device(dict(
+        v_template=arr(data["v_template"]),
+        shapedirs=arr(data["shapedirs"])[..., :num_betas],
+        posedirs=posedirs.reshape(-1, posedirs.shape[-1]).T,
+        J_regressor=arr(data["J_regressor"]),
+        lbs_weights=arr(data["weights"]),
+        faces=np.asarray(data["f"], np.int64),
+    ), dev)
+    return BodyModel(parents=tuple(int(p) for p in parents), num_betas=num_betas, **t)
 
 
 def make_test_body(

@@ -1,7 +1,10 @@
 """Shared CLI helpers (port of ``soar_tpu.cli.common``).
 
-``synthetic_setup`` builds the same demo avatar as the JAX package's (body
-dims, field capacity, subdiv and frame count are the checkpoint contract).
+``synthetic_setup`` and ``real_setup`` are the one definition of the
+avatar each input builds, shared by ``cli.train``, ``cli.render_rot`` and
+``cli.export_mesh``: body dims, field capacity, subdivision and frame count
+are the checkpoint contract, so a checkpoint one tool wrote restores in the
+others.
 """
 
 from __future__ import annotations
@@ -35,15 +38,55 @@ def synthetic_setup(distill_steps: int = 0, seed: int = 0, device="cuda"):
 
 
 def load_body_model(smpl_model: str, device="cuda"):
-    """``test:J,S,R`` builds the procedural test body (J joints, S segments
-    per bone, R ring vertices).  The SMPL-X npz / SMPL pkl loaders are not
-    ported yet."""
-    from ..body.model import make_test_body
+    """The body by name: ``test:J,S,R`` builds the procedural test body (J
+    joints, S segments per bone, R ring vertices; no download), a ``.pkl``
+    is a legacy SMPL model, anything else an SMPL-X ``.npz``.  All three
+    CLIs dispatch through here, so they accept the same model files."""
+    from ..body.model import load_smpl_pkl, load_smplx_npz, make_test_body
 
     if smpl_model.startswith("test:"):
         j, s, r = (int(x) for x in smpl_model[5:].split(","))
         return make_test_body(num_joints=j, segments_per_bone=s, ring=r, device=device)
-    raise NotImplementedError(
-        f"body model {smpl_model!r}: only the procedural 'test:J,S,R' body is "
-        "ported so far"
+    if smpl_model.endswith(".pkl"):
+        return load_smpl_pkl(smpl_model, device=device)
+    return load_smplx_npz(smpl_model, device=device)
+
+
+def real_setup(
+    dataroot: str,
+    smpl_model: str,
+    num_subdiv: int = 2,
+    seed: int = 0,
+    distill_steps: int = 1000,
+    device="cuda",
+):
+    """Returns (ds, params, model) for a capture on disk, with the avatar at
+    full field size (``AttributeFieldConfig()``) on ``device``.  The
+    insav_wild (GaussianAvatar-style) layout keeps SMPL-24 parameters in
+    ``train/smpl_parms.pth`` (or ``smpl_parms.pth``), which then pose the
+    avatar, and its images under ``train/`` when ``train/images`` exists."""
+    import os
+
+    from ..avatar.state import init_avatar
+    from ..data.dataset import load_insav_smpl_params, load_sequence
+    from ..field.attribute_field import AttributeFieldConfig
+
+    insav_params = None
+    if any(os.path.exists(os.path.join(dataroot, c))
+           for c in ("train/smpl_parms.pth", "smpl_parms.pth")):
+        insav_params = load_insav_smpl_params(dataroot)
+    img_root = dataroot
+    if insav_params is not None and os.path.isdir(os.path.join(dataroot, "train", "images")):
+        img_root = os.path.join(dataroot, "train")
+    ds = load_sequence(img_root)
+    smpl_params = insav_params if insav_params is not None else ds.smpl_params
+    params, model = init_avatar(
+        load_body_model(smpl_model, device=device),
+        smpl_params,
+        num_subdiv=num_subdiv,
+        field_cfg=AttributeFieldConfig(),
+        seed=seed,
+        distill_steps=distill_steps,
+        device=device,
     )
+    return ds, params, model

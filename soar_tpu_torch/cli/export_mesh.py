@@ -1,18 +1,18 @@
 """Mesh export CLI (port of ``soar_tpu.cli.export_mesh``): checkpoint ->
 density field -> isosurface -> cleaned/decimated OBJ.
 
+    python -m soar_tpu_torch.cli.export_mesh --ckpt outputs/run/stage1 \
+        --dataroot D --smpl-model M [--num-subdiv 2] --out mesh.obj
     python -m soar_tpu_torch.cli.export_mesh --synthetic \
         --ckpt outputs/run/stage1 --out mesh.obj [--device cpu]
 
-The flags and defaults are the JAX CLI's, plus ``--device``; the two that
-only shape a real-capture run (``--smpl-model``, ``--num-subdiv``) are not
-defined until real captures are ported, as in ``cli.train``.  The avatar is
-rebuilt through the same ``cli.common`` helper as ``cli.train`` /
-``cli.render_rot``, so a checkpoint either of those produced restores here
-with matching shapes.  Only ``--synthetic`` (the procedural fixture) is
-ported: ``--dataroot`` stops with an error until the real-capture loader
-is, and ``--ckpt`` takes a checkpoint directory written by this package.
-The density field runs on ``--device``; the isosurface, cleaning and
+The flags and defaults are the JAX CLI's, plus ``--device``.  The avatar is
+rebuilt through the same ``cli.common`` helpers as ``cli.train`` /
+``cli.render_rot`` (``real_setup`` for a capture, ``synthetic_setup`` for
+the procedural fixture), so a checkpoint either of those produced restores
+here with matching shapes; ``--num-subdiv`` must be the training run's.
+``--ckpt`` takes a checkpoint directory written by this package.  The
+density field runs on ``--device``; the isosurface, cleaning and
 decimation run in numpy on the host, as in the JAX package.
 """
 
@@ -25,7 +25,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--dataroot", default=None)
+    ap.add_argument("--smpl-model", default=None)
     ap.add_argument("--synthetic", action="store_true")
+    ap.add_argument("--num-subdiv", type=int, default=2,
+                    help="must match the value the checkpoint was trained "
+                    "with (surfel count is part of the checkpoint's shape)")
     ap.add_argument("--out", default="mesh.obj")
     ap.add_argument("--resolution", type=int, default=128)
     ap.add_argument("--density-thresh", type=float, default=0.8)
@@ -42,12 +46,8 @@ def main(argv=None):
     )
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
-    if args.dataroot:
-        ap.error("--dataroot is not ported yet (real-capture loading arrives "
-                 "with a later slice of the port)")
-    if not args.synthetic:
-        ap.error("only --synthetic is ported so far (real captures arrive with a "
-                 "later slice)")
+    if not args.synthetic and not (args.dataroot and args.smpl_model):
+        ap.error("--dataroot and --smpl-model required (or --synthetic)")
     if args.ckpt and args.ckpt.endswith(".ckpt"):
         ap.error("importing a reference .ckpt is not ported yet")
 
@@ -55,9 +55,14 @@ def main(argv=None):
 
     from ..io.checkpoint import load_avatar
     from ..io.meshing import extract_mesh, write_obj
-    from .common import synthetic_setup
+    from .common import real_setup, synthetic_setup
 
-    _, params, model = synthetic_setup(distill_steps=0, device=args.device)
+    if args.synthetic:
+        _, params, model = synthetic_setup(distill_steps=0, device=args.device)
+    else:
+        _, params, model = real_setup(args.dataroot, args.smpl_model,
+                                      num_subdiv=args.num_subdiv, distill_steps=0,
+                                      device=args.device)
     if args.ckpt:
         params, _ = load_avatar(args.ckpt, params)
 

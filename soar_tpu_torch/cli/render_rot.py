@@ -4,18 +4,23 @@
 Each of ``num_views`` azimuth steps composes the first frame's global
 orientation with a rotation about y (``global_orient_i = R_0 @
 Ry(2*pi*i/n)``), renders rgb / normal / occ / mask through the frame-0
-camera and writes pngs (+ mp4 when a video backend exists).
+camera and writes pngs.
 
+    python -m soar_tpu_torch.cli.render_rot --dataroot D --smpl-model M \
+        [--num-subdiv 2] --ckpt outputs/run/stage1 --out outputs/run/rot
     python -m soar_tpu_torch.cli.render_rot --synthetic --num-views 4
     python -m soar_tpu_torch.cli.render_rot --synthetic --ckpt outputs/run/stage1
 
-Only ``--synthetic`` (the procedural fixture, no downloads) is ported.
-Without ``--ckpt`` it renders the fixture's own avatar (explicit colours);
-with ``--ckpt`` (a checkpoint directory written by ``cli.train
---synthetic``) it rebuilds the synthetic avatar the trainer starts from,
-loads the checkpoint into it and renders through the field, as the JAX
-package's CLI does for its own checkpoints.  Reference ``.ckpt`` files and
-real captures arrive with later slices.
+``--dataroot`` rebuilds the capture's avatar as ``cli.train --dataroot``
+does (``cli.common.real_setup``, undistilled; ``--num-subdiv`` must be the
+training run's) and renders at the capture's own size.  ``--synthetic``
+renders the procedural fixture (no downloads): without ``--ckpt`` the
+fixture's own avatar, with ``--ckpt`` the synthetic avatar the trainer
+starts from.  A checkpoint directory written by ``cli.train`` is loaded
+into the rebuilt avatar and rendered through the field, as the JAX
+package's CLI does for its own checkpoints; without ``--ckpt`` a capture's
+avatar renders its explicit attributes.  Reference ``.ckpt`` files arrive
+with a later slice.
 """
 
 from __future__ import annotations
@@ -57,7 +62,7 @@ def run_turntable(out_dir, ds, params, model, use_explicit, num_views=36,
     from .. import resolve_device
     from ..avatar.renderer import RenderSettings, render_view
     from ..core.transforms import batch_rodrigues, rotmat_to_rotvec
-    from ..train.evaluate import save_png, try_save_mp4
+    from ..train.evaluate import save_png
 
     dev = resolve_device(device)
     if params.xyz.device.type != dev.type:
@@ -74,7 +79,6 @@ def run_turntable(out_dir, ds, params, model, use_explicit, num_views=36,
     bg = torch.ones(3, device=dev)
 
     outs = []
-    buckets = {"rgb": [], "normal": [], "occ": [], "mask": []}
     with torch.no_grad():
         for i in range(num_views):
             angle = 2.0 * np.pi * i / num_views
@@ -95,20 +99,18 @@ def run_turntable(out_dir, ds, params, model, use_explicit, num_views=36,
                 "mask": out["mask"].cpu().numpy()[..., None].repeat(3, -1),
             }
             for name, img in frame.items():
-                buckets[name].append(img)
                 save_png(os.path.join(out_dir, f"{name}_{i:03d}.png"), img)
-
-    for name in ("rgb", "normal", "occ"):
-        if not try_save_mp4(os.path.join(out_dir, f"{name}.mp4"), buckets[name]):
-            print(f"[warn] no mp4 backend; {name} left as pngs")
     print(f"wrote {num_views} views to {out_dir}")
     return outs
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
+    ap.add_argument("--dataroot", type=str, default=None)
+    ap.add_argument("--smpl-model", type=str, default=None)
+    ap.add_argument("--num-subdiv", type=int, default=2)
     ap.add_argument("--synthetic", action="store_true",
-                    help="render the procedural fixture (the only ported input)")
+                    help="render the procedural fixture")
     ap.add_argument("--out", type=str, default="outputs/rot")
     ap.add_argument("--num-views", type=int, default=36)
     ap.add_argument("--use-explicit", action="store_true",
@@ -119,12 +121,12 @@ def main(argv=None):
                          "(e.g. <out>/stage1)")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
-    if not args.synthetic:
-        ap.error("only --synthetic is ported so far (no real captures)")
+    if not args.synthetic and not (args.dataroot and args.smpl_model):
+        ap.error("--dataroot and --smpl-model required (or --synthetic)")
     if args.ckpt and args.ckpt.endswith(".ckpt"):
         ap.error("importing a reference .ckpt is not ported yet")
 
-    if not args.ckpt:
+    if args.synthetic and not args.ckpt:
         from ..data.dataset import make_synthetic_sequence
 
         ds, (params, model) = make_synthetic_sequence(
@@ -135,15 +137,21 @@ def main(argv=None):
         return
 
     from ..io.checkpoint import load_avatar
-    from .common import synthetic_setup
+    from .common import real_setup, synthetic_setup
 
-    # The one shared synthetic-avatar construction: it must match
-    # cli.train --synthetic or checkpoints stop round-tripping.
-    ds, params, model = synthetic_setup(distill_steps=0, device=args.device)
-    params, step = load_avatar(args.ckpt, params)
-    print(f"loaded {args.ckpt} (step {step})")
-    run_turntable(args.out, ds, params, model, args.use_explicit, args.num_views,
-                  device=args.device)
+    # The avatar constructions shared with cli.train: they must match it or
+    # checkpoints stop round-tripping.
+    if args.synthetic:
+        ds, params, model = synthetic_setup(distill_steps=0, device=args.device)
+    else:
+        ds, params, model = real_setup(args.dataroot, args.smpl_model,
+                                       num_subdiv=args.num_subdiv, distill_steps=0,
+                                       device=args.device)
+    if args.ckpt:
+        params, step = load_avatar(args.ckpt, params)
+        print(f"loaded {args.ckpt} (step {step})")
+    run_turntable(args.out, ds, params, model, args.use_explicit or args.ckpt is None,
+                  args.num_views, device=args.device)
 
 
 if __name__ == "__main__":

@@ -1,27 +1,33 @@
 """Two-stage training CLI (port of ``soar_tpu.cli.train``).
 
+    python -m soar_tpu_torch.cli.train --dataroot data/custom/<seq> \
+        --smpl-model SMPLX_NEUTRAL.npz --out outputs/<seq> [--stage both] [--steps 1000]
     python -m soar_tpu_torch.cli.train --synthetic --steps 3 [--device cpu]
-    python -m soar_tpu_torch.cli.train --synthetic --guidance imagedream --mock-guidance \
-        [--lpips-weights lpips_vgg16.pkl --lambda-vgg 0.1] [--sds-mode split] [--eval]
+    python -m soar_tpu_torch.cli.train --dataroot D --smpl-model test:10,7,28 --num-subdiv 3 \
+        --guidance imagedream --mock-guidance [--lpips-weights lpips_vgg16.pkl] [--eval]
 
 Stage 0 supervises geometry (normals), stage 1 texture (RGB); stage 1
 starts from the stage-0 parameters with a fresh optimizer, and each stage
-ends with a checkpoint in ``<out>/stage<K>``.  ``--synthetic`` trains the
-procedural fixture (no download).  ``--guidance imagedream|mvdream`` adds
-the SDS loss after each stage's ``sds_start``: the networks from
-``--guidance-ckpt`` (a torch ``sd-v2.1-base-4view[-ipmv]`` checkpoint) with
-text embeddings from ``--prompt-embeddings`` (a ``.npz`` of ``cond`` /
-``uncond`` [77, D]) or ``--clip-model-dir``, or random at full shape
-(``--mock-guidance``).  ImageDream's ip tokens are computed once per frame
-before training (stage 1 from ``images_crop``, stage 0 from ``normal_F``)
-and the CLIP tower is then freed.  ``--lpips-weights`` (the JAX CLI's
-LPIPS-VGG16 pickle) adds the normal-LPIPS terms, the VGG RGB term with
-``--lambda-vgg``, and LPIPS to ``--eval``.  The flags and defaults are the
-JAX CLI's; those of parts not ported yet (YAML configs, reference
-checkpoints, real captures, multi-device, traces, wandb) stop with an
-error instead of being ignored, and the flags that only shape a
-real-capture run (``--smpl-model``, ``--num-subdiv``, ``--gen-res``) are not
-defined yet.
+ends with a checkpoint in ``<out>/stage<K>``.  ``--dataroot`` trains on a
+capture on disk (``data.dataset.load_sequence``'s layout, or insav_wild's)
+with the body from ``--smpl-model`` (an SMPL-X ``.npz``, an SMPL ``.pkl``,
+or ``test:J,S,R`` for the procedural body), the avatar subdivided
+``--num-subdiv`` times and its field distilled 1000 steps; gen views render
+at ``--gen-res`` and the normal passes at the stored normal maps' size.
+``--synthetic`` trains the procedural fixture at 128² (no download;
+``--smpl-model``, ``--num-subdiv`` and ``--gen-res`` are ignored there).
+``--guidance imagedream|mvdream`` adds the SDS loss after each stage's
+``sds_start``: the networks from ``--guidance-ckpt`` (a torch
+``sd-v2.1-base-4view[-ipmv]`` checkpoint) with text embeddings from
+``--prompt-embeddings`` (a ``.npz`` of ``cond`` / ``uncond`` [77, D]) or
+``--clip-model-dir``, or random at full shape (``--mock-guidance``).
+ImageDream's ip tokens are computed once per frame before training (stage 1
+from ``images_crop``, stage 0 from ``normal_F``) and the CLIP tower is then
+freed.  ``--lpips-weights`` (the JAX CLI's LPIPS-VGG16 pickle) adds the
+normal-LPIPS terms, the VGG RGB term with ``--lambda-vgg``, and LPIPS to
+``--eval``.  The flags and defaults are the JAX CLI's; those of parts not
+ported yet (YAML configs, reference checkpoints, multi-device, traces,
+wandb) stop with an error instead of being ignored.
 """
 
 from __future__ import annotations
@@ -34,7 +40,6 @@ import time
 # flag -> what it waits for; each is refused when given.
 NOT_PORTED = {
     "config": "YAML configs",
-    "dataroot": "real-capture loading",
     "import_ckpt": "reference .ckpt import",
     "multichip": "multi-device training",
     "trace_steps": "profiler traces",
@@ -71,10 +76,13 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", type=str, default=None)
     ap.add_argument("--dataroot", type=str, default=None)
+    ap.add_argument("--smpl-model", type=str, default=None,
+                    help="SMPL-X .npz, SMPL .pkl, or test:J,S,R (the procedural body)")
     ap.add_argument("--out", type=str, default="outputs/run")
     ap.add_argument("--stage", type=str, default="both", choices=["0", "1", "both"])
     ap.add_argument("--steps", type=int, default=None,
                     help="steps per stage (default 1000)")
+    ap.add_argument("--num-subdiv", type=int, default=2)
     ap.add_argument("--n-views", type=int, default=None,
                     help="gen views per step (default 4)")
     ap.add_argument("--seed", type=int, default=0)
@@ -113,6 +121,10 @@ def main(argv=None):
     ap.add_argument("--mock-guidance", action="store_true",
                     help="random full-shape guidance networks and text embeddings")
     ap.add_argument("--guidance-image-size", type=int, default=256)
+    ap.add_argument("--gen-res", type=int, default=256,
+                    help="resolution of the gen-view renders of a capture (default 256, "
+                    "the guidance's resolution; the reference renders 512 and "
+                    "downsamples); --synthetic renders 128")
     ap.add_argument("--guidance-dtype", type=str, default="bf16", choices=["bf16", "f32"],
                     help="guidance networks' compute dtype (the reference runs "
                     "half_precision_weights=true)")
@@ -141,9 +153,8 @@ def main(argv=None):
     args.guidance = resolve_guidance_kind(
         args.guidance, ckpt=args.guidance_ckpt, embeddings=args.prompt_embeddings,
         clip_dir=args.clip_model_dir, mock=args.mock_guidance)
-    if not args.synthetic:
-        ap.error("only --synthetic is ported so far (real captures arrive with a "
-                 "later slice)")
+    if not args.synthetic and not (args.dataroot and args.smpl_model):
+        raise SystemExit("--dataroot and --smpl-model required (or --synthetic)")
 
     import dataclasses as dc
     from collections import OrderedDict
@@ -167,13 +178,25 @@ def main(argv=None):
         make_train_step,
         sample_step_draws,
     )
-    from .common import synthetic_setup
+    from .common import real_setup, synthetic_setup
 
     dev = resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)
     cfg = TrainConfig(n_views=args.n_views if args.n_views else 4)
-    ds, params, model = synthetic_setup(distill_steps=100, seed=args.seed, device=dev)
-    gen_size = normal_size = (128, 128)
+    if args.synthetic:
+        ds, params, model = synthetic_setup(distill_steps=100, seed=args.seed, device=dev)
+        gen_size = normal_size = (128, 128)
+    else:
+        t_setup = time.time()
+        ds, params, model = real_setup(args.dataroot, args.smpl_model,
+                                       num_subdiv=args.num_subdiv, seed=args.seed,
+                                       distill_steps=1000, device=dev)
+        gen_size = (args.gen_res, args.gen_res)
+        # The normal passes render at the stored normal maps' resolution.
+        nres = ds.normal_F.shape[1] if ds.normal_F.size else cfg.height
+        normal_size = (nres, nres)
+        print(f"capture {args.dataroot}: {ds.num_frames} frames at {ds.image_size}, "
+              f"{params.xyz.shape[0]} surfels, set up in {time.time() - t_setup:.1f}s")
 
     resume_step = 0
     if args.resume:

@@ -6,7 +6,9 @@ numpy arrays (``np.asarray`` on every leaf); nothing here imports JAX.
 
 - ``body``: the ``BodyModel`` fields (``v_template``, ``shapedirs``,
   ``posedirs``, ``J_regressor``, ``lbs_weights``, ``parents``, ``faces``,
-  ``num_betas``, optional ``pose_mean``).
+  ``num_betas``, optional ``pose_mean`` and the optional SMPL-X landmark
+  tables ``extra_joint_idxs``, ``lmk_faces_idx``, ``lmk_bary_coords``,
+  ``dyn_lmk_faces_idx``, ``dyn_lmk_bary_coords``).
 - ``params``: the ``AvatarParams`` fields; ``params["field"]`` holds
   ``aabb``, both hash tables (``encoding``, ``quat_encoding``) and the five
   ``mlp_*`` heads as lists of ``{"w", "b"}`` layers.  JAX's ``w`` is
@@ -53,9 +55,13 @@ def field_config_from_dict(d: Dict) -> AttributeFieldConfig:
     return AttributeFieldConfig(grid=HashGridConfig(**d.pop("grid")), **d)
 
 
+_BODY_OPTIONAL = ("pose_mean", "extra_joint_idxs", "lmk_faces_idx", "lmk_bary_coords",
+                  "dyn_lmk_faces_idx", "dyn_lmk_bary_coords")
+
+
 def body_from_numpy(body: Dict, device="cuda") -> BodyModel:
     dev = resolve_device(device)
-    pm = body.get("pose_mean")
+    optional = {k: None if body.get(k) is None else _t(body[k], dev) for k in _BODY_OPTIONAL}
     return BodyModel(
         v_template=_t(body["v_template"], dev),
         shapedirs=_t(body["shapedirs"], dev),
@@ -65,7 +71,7 @@ def body_from_numpy(body: Dict, device="cuda") -> BodyModel:
         parents=tuple(int(p) for p in body["parents"]),
         faces=_t(body["faces"], dev),
         num_betas=int(body["num_betas"]),
-        pose_mean=None if pm is None else _t(pm, dev),
+        **optional,
     )
 
 

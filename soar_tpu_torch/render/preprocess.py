@@ -138,6 +138,15 @@ def preprocess(
 
     R = quat_to_rotmat(g.quats)  # [N, 3, 3], columns are local axes
     w_rot = camera.w2c[:3, :3]
+    # A splat in front of the near plane is culled, but the footprint and
+    # local homography below divide by its depth: at z = 0 they are NaN, and
+    # the zero cotangent it gets times that NaN makes NaN gradients on the
+    # parameters it shares with every other splat (the field).  Those terms
+    # take its depth clamped to the near plane; a kept splat's values are
+    # unchanged, and a culled splat's are never read.  (The JAX package has
+    # the NaN: ROADMAP.md, Queue 3.)
+    z = p_view[:, 2]
+    p_safe = torch.cat([p_view[:, :2], torch.where(z >= cfg.near, z, cfg.near)[:, None]], -1)
 
     zeros10 = torch.zeros((N, 10), dtype=g.means3d.dtype, device=g.means3d.device)
     if cfg.surface:
@@ -148,7 +157,7 @@ def preprocess(
         if cfg.render_front:
             valid = valid & (view_dot <= -0.01)
         if cfg.perpix_depth:
-            jinv, grazing = _local_homo(p_view, n_view, ax0_view, ax1_view, fx, fy)
+            jinv, grazing = _local_homo(p_safe, n_view, ax0_view, ax1_view, fx, fy)
             valid = valid & ~grazing
         else:
             jinv = zeros10
@@ -164,7 +173,7 @@ def preprocess(
     RS = R * s[:, None, :]
     cov3d = RS @ RS.transpose(-1, -2)
 
-    cov = _ewa_cov2d(p_view, cov3d, w_rot, (fx, fy), (tanx, tany), cfg.low_pass)
+    cov = _ewa_cov2d(p_safe, cov3d, w_rot, (fx, fy), (tanx, tany), cfg.low_pass)
     det = cov[:, 0] * cov[:, 2] - cov[:, 1] ** 2
     valid = valid & (det != 0.0)
     det_inv = 1.0 / torch.where(det == 0.0, 1.0, det)

@@ -7,8 +7,8 @@ frame with its GT camera, whiten the GT outside the mask, compute PSNR,
 skimage's SSIM and, given an ``lpips_fn``, LPIPS; write per-frame pngs and
 ``psnrs.txt`` / ``ssims.txt`` / ``lpips.txt`` / ``average.txt`` (whose
 LPIPS column is nan without LPIPS weights, as in the JAX package).  ``save_png`` writes an 8-bit PNG with ``zlib`` and ``struct``
-alone, so the port needs no image library; ``try_save_mp4`` uses OpenCV
-when it is installed and reports failure otherwise.
+alone, so the port needs no image library.  Frames stay PNGs: the JAX
+package's ``test.mp4`` needs OpenCV, which the port does not use.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from __future__ import annotations
 import os
 import struct
 import zlib
-from typing import Dict, List, Optional
+from typing import Dict, Optional
 
 import numpy as np
 
@@ -53,22 +53,6 @@ def save_png(path: str, img: np.ndarray) -> None:
         f.write(_png_chunk(b"IHDR", ihdr))
         f.write(_png_chunk(b"IDAT", zlib.compress(raw, 6)))
         f.write(_png_chunk(b"IEND", b""))
-
-
-def try_save_mp4(path: str, frames: List[np.ndarray], fps: int = 30) -> bool:
-    """mp4 via cv2 when it is installed; returns success."""
-    try:
-        import cv2
-    except ImportError:
-        return False
-    h, w = frames[0].shape[:2]
-    vw = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
-    if not vw.isOpened():
-        return False
-    for f in frames:
-        vw.write(_to_u8(f)[..., ::-1])
-    vw.release()
-    return True
 
 
 def skimage_ssim(pred: np.ndarray, gt: np.ndarray, win: int = 7) -> float:
@@ -126,7 +110,7 @@ def evaluate(
     H, W = ds.image_size
     if save_dir:
         os.makedirs(save_dir, exist_ok=True)
-    psnrs, ssims, lpipss, frames = [], [], [], []
+    psnrs, ssims, lpipss = [], [], []
     with torch.no_grad():
         for i in indices:
             batch = make_gt_batch(ds, model, i, device=dev)
@@ -139,7 +123,6 @@ def evaluate(
             ssims.append(skimage_ssim(pred, gt))
             if lpips_fn is not None:
                 lpipss.append(float(lpips_fn(pred, gt)))
-            frames.append(pred)
             if save_dir:
                 save_png(os.path.join(save_dir, f"{i}.png"), pred)
     out = {
@@ -155,5 +138,4 @@ def evaluate(
             np.savetxt(os.path.join(save_dir, "lpips.txt"), np.asarray(lpipss))
         with open(os.path.join(save_dir, "average.txt"), "w") as f:
             f.write(f"{out['psnr']} {out['ssim']} {out.get('lpips', float('nan'))}")
-        try_save_mp4(os.path.join(save_dir, "test.mp4"), frames)
     return out

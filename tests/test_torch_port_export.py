@@ -285,10 +285,20 @@ def test_export_mesh_cli_matches_jax(field_attrs, tmp_path, monkeypatch):
 def test_export_mesh_cli_refuses_unported_inputs(tmp_path):
     from soar_tpu_torch.cli import export_mesh as tcli
 
-    # --smpl-model / --num-subdiv only shape a real-capture run: they are not
-    # defined until real captures are ported, so they are refused, not ignored.
-    for flags in (["--dataroot", "/nonexistent"], [], ["--synthetic", "--ckpt", "ref.ckpt"],
-                  ["--synthetic", "--num-subdiv", "3"], ["--synthetic", "--smpl-model", "x"]):
+    out = ["--device", "cpu", "--out", str(tmp_path / "x.obj")]
+    # No input, a capture without its body model, a reference .ckpt.
+    for flags in (["--dataroot", "/nonexistent"], [], ["--synthetic", "--ckpt", "ref.ckpt"]):
         with pytest.raises(SystemExit) as e:
-            tcli.main(flags + ["--device", "cpu", "--out", str(tmp_path / "x.obj")])
+            tcli.main(flags + out)
         assert e.value.code == 2
+    # A missing capture directory stops in the loader.
+    with pytest.raises(FileNotFoundError, match="no images under"):
+        tcli.main(["--dataroot", "/nonexistent", "--smpl-model", "test:4,3,8"] + out)
+    # --num-subdiv and --smpl-model shape a capture's avatar; beside
+    # --synthetic they are accepted and ignored, as in the JAX CLI.
+    common = ["--synthetic", "--density-thresh", "0.01", "--resolution", "16"] + out
+    plain = tcli.main(common)
+    assert plain["verts"] > 0
+    for flags in (["--num-subdiv", "3"], ["--smpl-model", "x"]):
+        stats = tcli.main(flags + common)
+        assert (stats["verts"], stats["faces"]) == (plain["verts"], plain["faces"])

@@ -217,6 +217,48 @@ def test_preprocess_and_bin_and_sort_match_jax(name):
         assert n(out_t[4])[0] > 0 and n(out_t[4])[1] > 0, n(out_t[4])
 
 
+def test_preprocess_gradient_is_finite_with_a_splat_on_the_camera_plane():
+    """A splat at view-space z = 0 is culled, and its footprint divides by
+    z.  In the JAX package its zero cotangent times the NaN footprint makes
+    its gradient NaN (a shared parameter such as the field would take it);
+    the port clamps a culled splat's depth in those terms, so every gradient
+    is finite and the kept splats' values and gradients are JAX's."""
+    rng = np.random.RandomState(4)
+    N = 12
+    means = (rng.randn(N, 3) * 0.3).astype(np.float32)
+    means[:, 2] -= 3.0
+    means[0] = [0.5, 0.2, 0.0]  # on the plane of the identity camera
+    means[1] = [0.1, -0.3, 0.05]  # in front of the near plane
+    quats = np.asarray(quat_normalize(jnp.asarray(rng.randn(N, 4).astype(np.float32))))
+    rest = (np.full((N, 3), 0.05, np.float32), np.full(N, 0.5, np.float32),
+            rng.rand(N, 3).astype(np.float32))
+    c2w, fov, size = np.eye(4, dtype=np.float32), np.float32(0.8), (64, 64)
+    jc = jcam.camera_from_c2w(jnp.asarray(c2w), jnp.asarray(fov), jnp.asarray(fov))
+    tc = tcam.camera_from_c2w(t(c2w), fov, fov)
+
+    def jloss(m):
+        g = jtypes.GaussianInputs(m, jnp.asarray(quats), *(jnp.asarray(a) for a in rest))
+        p = jpre.preprocess(g, jc, size, jtypes.RasterConfig())
+        kept = p.valid[:, None]
+        return jnp.sum(jnp.where(kept, p.conic, 0.0)) + jnp.sum(jnp.where(kept, p.jinv, 0.0)), p
+
+    (_, jp), jgrad = jax.value_and_grad(jloss, has_aux=True)(jnp.asarray(means))
+    m = t(means).requires_grad_(True)
+    tp = tpre.preprocess(ttypes.GaussianInputs(m, t(quats), *(t(a) for a in rest)), tc, size,
+                         ttypes.RasterConfig())
+    kept = tp.valid[:, None]
+    (torch.where(kept, tp.conic, 0.0).sum() + torch.where(kept, tp.jinv, 0.0).sum()).backward()
+    v = n(jp.valid)
+    assert not v[0] and not v[1] and v[2:].sum() >= 8
+    np.testing.assert_array_equal(n(tp.valid), v)
+    assert not np.isfinite(np.asarray(jgrad)[0]).all()  # the JAX package's NaN
+    assert bool(torch.isfinite(m.grad).all())
+    assert not bool(m.grad[:2].any())  # culled splats get no gradient
+    for f in ("conic", "jinv", "radius"):
+        assert_close(n(getattr(tp, f))[v], n(getattr(jp, f))[v], 1e-4, 1e-5, msg=f)
+    assert_close(m.grad[2:], np.asarray(jgrad)[2:], 1e-4, 1e-4)
+
+
 # --------------------------------------------------------------- rasterize
 
 

@@ -100,7 +100,9 @@ def test_run_turntable_writes_what_jax_writes(slice_setup, tmp_path):
     outs = trr.run_turntable(str(tdir), ds, tparams, tmodel, False, 2, device="cpu")
     # CPU tensors take the plain composite: no kernel launch.
     assert composite_block.launches == before and len(outs) == 2
-    assert sorted(os.listdir(tdir)) == sorted(os.listdir(jdir))
+    # The same PNGs; the JAX package also writes mp4s when OpenCV is
+    # installed, which the port does not use.
+    assert sorted(os.listdir(tdir)) == sorted(f for f in os.listdir(jdir) if f.endswith(".png"))
     for name in sorted(os.listdir(jdir)):
         if not name.endswith(".png"):
             continue

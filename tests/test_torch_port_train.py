@@ -449,8 +449,13 @@ def test_gt_batch_stack_matches_per_frame(avatar):
 
 def test_cli_train_and_render_rot_round_trip(tmp_path, monkeypatch, capsys):
     out = str(tmp_path / "run")
+    # The flags that shape a capture's run are accepted beside --synthetic
+    # and ignored there, as in the JAX CLI: this would not load a body "x"
+    # nor subdivide three times.
     tcli.main(["--synthetic", "--stage", "both", "--steps", "2", "--device", "cpu",
-               "--out", out, "--log-every", "1", "--eval"])
+               "--out", out, "--log-every", "1", "--eval", "--gen-res", "256",
+               "--num-subdiv", "3", "--smpl-model", "x"])
+    assert "saved" in capsys.readouterr().out
     for st in (0, 1):
         assert os.path.exists(os.path.join(out, f"stage{st}", "avatar.pt"))
     rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
@@ -474,13 +479,19 @@ def test_cli_train_and_render_rot_round_trip(tmp_path, monkeypatch, capsys):
     # refused too.
     for bad in (["--guidance", "imagedream"], ["--guidance", "mvdream"],
                 ["--guidance", "mvdream", "--guidance-ckpt", "x"],
-                ["--gen-res", "256"],
-                ["--wandb"], ["--dataroot", "x"], ["--config", "x.yaml"],
+                ["--wandb"], ["--config", "x.yaml"],
                 ["--trace-steps", "2"], ["--multichip"],
                 ["--import-ckpt", "x"], []):
         with pytest.raises(SystemExit):
             tcli.main((["--synthetic"] if bad else []) + bad + ["--device", "cpu",
                                                                 "--out", out])
+    # A capture needs its body model, as in the JAX CLI; a missing capture
+    # directory stops in the loader.
+    with pytest.raises(SystemExit, match="--dataroot and --smpl-model required"):
+        tcli.main(["--dataroot", "x", "--device", "cpu", "--out", out])
+    with pytest.raises(FileNotFoundError, match="no images under"):
+        tcli.main(["--dataroot", str(tmp_path / "absent"), "--smpl-model", "test:4,3,8",
+                   "--device", "cpu", "--out", out])
     # SDS guidance with random networks, at the tiny shapes here: each
     # stage's step 0 is its warm-up (sds_start 0), step 1 is guided.
     monkeypatch.setattr(tbuild.NetworkShapes, "full", classmethod(lambda cls: cls.tiny(32)))

@@ -55,7 +55,9 @@ def body_to_numpy(body) -> dict:
         "parents": tuple(body.parents),
         "faces": n(body.faces),
         "num_betas": body.num_betas,
-        "pose_mean": None if body.pose_mean is None else n(body.pose_mean),
+        **{k: None if getattr(body, k) is None else n(getattr(body, k))
+           for k in ("pose_mean", "extra_joint_idxs", "lmk_faces_idx", "lmk_bary_coords",
+                     "dyn_lmk_faces_idx", "dyn_lmk_bary_coords")},
     }
 
 
