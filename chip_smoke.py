@@ -100,7 +100,31 @@
    distillation seconds, peak memory and the eval's PSNR/SSIM/LPIPS
    (reported, not gated); then ``cli.render_rot`` and ``cli.export_mesh``
    with the same capture flags on its stage-1 checkpoint.
-13. Prints the wall seconds of each phase (``[time]``), a
+13. The reference checkpoint (``[reference import]``), on that capture:
+   a Lightning ``.ckpt`` written by the script (``torch.save``) with the
+   explicit tensors of the avatar ``real_setup`` builds there (125,664
+   surfels) and an attribute field at the reference's widths (16 levels,
+   16 to 2048, 2^18 rows, hidden 64) with random values, in the tcnn
+   (packed fp16) and in the torch layout; per layout,
+   ``reference_field_apply`` at every surfel on the card, timed, against
+   the CPU on 4,096 points (1e-5); ``cli.train --config
+   configs/surfel_stage0.yaml --import-ckpt <tcnn file> --steps 4
+   --guidance imagedream --mock-guidance --sds-start 0 --trace-steps 1``,
+   counted (13 + 8 launches a step), a trace written; ``cli.render_rot
+   --ckpt <tcnn file>``.  Before the kernels, ``[yaml config]`` reads both
+   ``configs/*.yaml`` with the port's own YAML reader (no PyYAML here).
+14. The GaussianDreamer system (``[dreamer]``): the bench scene padded to
+   capacity 251,328, ``DreamerConfig``'s defaults (4 views at 256x256,
+   K=96, surface off, sigmoid opacities: the main passes composite at
+   C = 4), full-shape bf16 mock MVDream (text only); 6 steps, densify at
+   steps 2 and 4 with a threshold taken from the run's statistics, prune
+   at 5, counted (8 forward and 4 backward launches a step); alive after
+   each ``maintain`` (grows, within capacity), no host sync and no CPU op
+   in a loss step, a profiled step; a step's launches replayed and held
+   against their plain versions; the kernel step against the plain one
+   (f32 networks; loss 1e-3, gradients 2e-3); a gradient on the opacity
+   logits; dead slots never counted visible; everything finite.
+15. Prints the wall seconds of each phase (``[time]``), a
    ``{"kernels": [...]}`` line (the block composites with the summed
    device ms and bound of their recorded main-path launches,
    ``main_path_ms`` and ``main_path_bound_ms``, and their launches per step
@@ -362,6 +386,41 @@ def composite_bwd_bound_ms(args, C):
     return out
 
 
+def gate_fwd(label, got, want):
+    """The forward composite's gate, kernel ``got`` against plain ``want``
+    (accum, corr, T): all finite, at most KERNEL_FLIP_SHARE of the pixels
+    beyond KERNEL_TOL (a T-cutoff flip).  Returns the max |difference| per
+    output and that share."""
+    errs, share = {}, 0.0
+    for g, w, name in zip(got, want, ("accum", "corr", "T")):
+        check(bool(torch.isfinite(g).all()), f"{label}: kernel {name} not finite")
+        diff = (g - w).abs()
+        errs[name] = float(diff.max())
+        per_pixel = diff.reshape(diff.shape[0], diff.shape[1], -1).amax(-1)
+        share = max(share, float((per_pixel > KERNEL_TOL).float().mean()))
+    check(share <= KERNEL_FLIP_SHARE,
+          f"{label}: {share:.4%} of pixels differ from the plain version by > {KERNEL_TOL}")
+    return errs, share
+
+
+def gate_bwd(label, got, want):
+    """The backward composite's gate on gfeat: finite, a zero ``valid``
+    column; per column, the largest |kernel - plain| relative to the
+    column's largest magnitude, at most BWD_FLIP_SHARE of the entries beyond
+    KERNEL_TOL and none beyond BWD_CAP.  Returns the per-column relative
+    errors, that share and the max |difference|."""
+    check(bool(torch.isfinite(got).all()), f"{label}: gfeat not finite")
+    check(bool((got[..., 6] == 0).all()), f"{label}: the valid column has a gradient")
+    scale = want.abs().amax((0, 1))
+    diff = (got - want).abs()
+    rel = (diff.amax((0, 1)) / scale.clamp_min(1e-30)).tolist()
+    share = float((diff > KERNEL_TOL * scale).float().mean())
+    check(share <= BWD_FLIP_SHARE,
+          f"{label}: {share:.4%} of gfeat entries beyond {KERNEL_TOL} x column max")
+    check(max(rel) <= BWD_CAP, f"{label}: a gfeat entry beyond {BWD_CAP} x column max")
+    return rel, share, float(diff.max())
+
+
 def check_composite_kernel(C, seed):
     from soar_tpu_torch.render.block_composite import _launch_fwd, _pack, composite_block
     from soar_tpu_torch.render.composite import composite_block_plain
@@ -371,15 +430,7 @@ def check_composite_kernel(C, seed):
         got = composite_block(*args)
         torch.cuda.synchronize()
         want = composite_block_plain(*args)
-    errs, share = {}, 0.0
-    for g, w, name in zip(got, want, ("accum", "corr", "T")):
-        check(bool(torch.isfinite(g).all()), f"C={C}: kernel {name} not finite")
-        diff = (g - w).abs()
-        errs[name] = float(diff.max())
-        per_pixel = diff.reshape(diff.shape[0], diff.shape[1], -1).amax(-1)
-        share = max(share, float((per_pixel > KERNEL_TOL).float().mean()))
-    check(share <= KERNEL_FLIP_SHARE,
-          f"C={C}: {share:.4%} of pixels differ from the plain version by > {KERNEL_TOL}")
+    errs, share = gate_fwd(f"C={C}", got, want)
     with torch.no_grad():
         ms = cuda_ms(lambda: composite_block(*args), 200)
         # The kernel alone: without the wrapper's packing of the inputs (a
@@ -415,22 +466,14 @@ def check_composite_bwd_kernel(NT, C, seed):
     got = composite_block_bwd(*args, *cots)
     torch.cuda.synchronize()
     want = composite_block_bwd_plain(*args, *cots)
-    check(bool(torch.isfinite(got).all()), f"bwd NT={NT} C={C}: gfeat not finite")
-    check(bool((got[..., 6] == 0).all()), "bwd: the valid column has a gradient")
-    scale = want.abs().amax((0, 1))
-    diff = (got - want).abs()
-    rel = (diff.amax((0, 1)) / scale.clamp_min(1e-30)).tolist()
-    share = float((diff > KERNEL_TOL * scale).float().mean())
-    check(share <= BWD_FLIP_SHARE,
-          f"bwd NT={NT} C={C}: {share:.4%} of gfeat entries beyond {KERNEL_TOL} x column max")
-    check(max(rel) <= BWD_CAP, f"bwd NT={NT} C={C}: a gfeat entry beyond {BWD_CAP} x column max")
+    rel, share, max_err = gate_bwd(f"bwd NT={NT} C={C}", got, want)
     check(torch.equal(composite_block_bwd(*args, *cots), got),
           f"bwd NT={NT} C={C}: two launches on the same inputs differ")
     ms = cuda_ms(lambda: composite_block_bwd(*args, *cots), 100)
     feat = _pack(*args[:6]).contiguous()
     device_ms = kernel_ms(lambda: _launch_bwd(feat, args[6], *cots, *COMPOSITE_CONSTS), 100)
     plain_ms = cuda_ms(lambda: composite_block_bwd_plain(*args, *cots), 5)
-    out = {"NT": NT, "C": C, "K": TRAIN_K, "max_abs_err": float(diff.max()),
+    out = {"NT": NT, "C": C, "K": TRAIN_K, "max_abs_err": max_err,
            "col_rel_err": rel, "share_beyond_tol": share, "ms": ms, "device_ms": device_ms,
            "plain_ms": plain_ms}
     out.update(composite_bwd_bound_ms(args, C))
@@ -2210,8 +2253,8 @@ def time_calls(module, name, record):
     return lambda: setattr(module, name, fn)
 
 
-def run_real_capture(device, lpips_path):
-    """The real-capture path in one temporary directory: (a) the capture
+def run_real_capture(device, lpips_path, d):
+    """The real-capture path in the directory ``d``: (a) the capture
     written on the card by ``data.mock_capture``; (b) loaded by
     ``data.dataset.load_sequence``, every PNG decoded equal to the uint8
     image ``save_png`` was given; (c) ``cli.train --dataroot`` through
@@ -2226,157 +2269,670 @@ def run_real_capture(device, lpips_path):
     from soar_tpu_torch.render.block_composite import composite_block as bc
 
     rep = {}
-    with tempfile.TemporaryDirectory() as d:
-        cap = os.path.join(d, "capture")
-        # ---- (a) the capture, written on the card
-        written = {}
-        with timed("real capture: write"):
-            t0 = time.perf_counter()
-            info = mock_capture.make_capture(cap, REAL_FRAMES, REAL_SIZE, *REAL_BODY_DIMS,
-                                             subdiv=1, gt_k=REAL_GT_K, device=device,
-                                             written=written)
-            write_s = time.perf_counter() - t0
-        cov = info["coverage"]
-        check(len(written) == 4 * REAL_FRAMES and min(cov) >= 0.01,
-              f"real capture: {len(written)} PNGs written, coverage {cov}")
-        body = "test:" + ",".join(str(x) for x in REAL_BODY_DIMS)
-        print(f"[real capture] mock_capture --frames {REAL_FRAMES} --size {REAL_SIZE} "
-              f"--joints {REAL_BODY_DIMS[0]} --segments {REAL_BODY_DIMS[1]} --ring "
-              f"{REAL_BODY_DIMS[2]} --subdiv 1 --gt-k {REAL_GT_K} on the card: {write_s:.3f} s; "
-              f"GT without truncation (overflow 0 on every frame, K={REAL_GT_K}), coverage "
-              f"{min(cov):.4f}-{max(cov):.4f} (probe {max(info['probe_coverage'].values()):.4f}), "
-              f"transl z {info['transl_z']:+.3f}, GT avatar {info['surfels']} surfels")
+    cap = os.path.join(d, "capture")
+    # ---- (a) the capture, written on the card
+    written = {}
+    with timed("real capture: write"):
+        t0 = time.perf_counter()
+        info = mock_capture.make_capture(cap, REAL_FRAMES, REAL_SIZE, *REAL_BODY_DIMS,
+                                         subdiv=1, gt_k=REAL_GT_K, device=device,
+                                         written=written)
+        write_s = time.perf_counter() - t0
+    cov = info["coverage"]
+    check(len(written) == 4 * REAL_FRAMES and min(cov) >= 0.01,
+          f"real capture: {len(written)} PNGs written, coverage {cov}")
+    body = "test:" + ",".join(str(x) for x in REAL_BODY_DIMS)
+    print(f"[real capture] mock_capture --frames {REAL_FRAMES} --size {REAL_SIZE} "
+          f"--joints {REAL_BODY_DIMS[0]} --segments {REAL_BODY_DIMS[1]} --ring "
+          f"{REAL_BODY_DIMS[2]} --subdiv 1 --gt-k {REAL_GT_K} on the card: {write_s:.3f} s; "
+          f"GT without truncation (overflow 0 on every frame, K={REAL_GT_K}), coverage "
+          f"{min(cov):.4f}-{max(cov):.4f} (probe {max(info['probe_coverage'].values()):.4f}), "
+          f"transl z {info['transl_z']:+.3f}, GT avatar {info['surfels']} surfels")
 
-        # ---- (b) loaded back
-        with timed("real capture: load"):
-            t0 = time.perf_counter()
-            ds = dataset.load_sequence(cap)
-            load_s = time.perf_counter() - t0
-        n_png = sum(len([f for f in os.listdir(os.path.join(cap, sub)) if f.endswith(".png")])
-                    for sub in ("images", "masks", "normal_F", "normal_B"))
-        S, F = REAL_SIZE, REAL_FRAMES
-        shapes = {k: getattr(ds, k).shape for k in ("images", "masks", "normal_F", "normal_B",
-                                                     "normal_mask", "images_crop", "masks_crop")}
-        check(shapes == {"images": (F, S, S, 3), "masks": (F, S, S), "normal_F": (F, S, S, 3),
-                         "normal_B": (F, S, S, 3), "normal_mask": (F, S, S),
-                         "images_crop": (F, 512, 512, 3), "masks_crop": (F, 512, 512)},
-              f"real capture: loaded shapes {shapes}")
-        check(n_png == 4 * F and np.array_equal(ds.w2c, np.diag([1, -1, -1, 1]).astype(np.float32)),
-              f"real capture: {n_png} PNGs, w2c {ds.w2c.tolist()} (want the row 1:3 flip)")
-        with timed("real capture: decode check"):
-            bad = [p for p, u8 in written.items() if not np.array_equal(read_png(p), u8)]
-        check(not bad, f"real capture: decoded PNGs differ from what was written: {bad[:4]}")
-        print(f"[real capture] load_sequence: {n_png} PNGs in {load_s:.3f} s (crops included); "
-              f"shapes {json.dumps({k: list(v) for k, v in shapes.items()})}; w2c rows 1:3 "
-              f"flipped; all {len(written)} decoded PNGs equal the uint8 images written, bit "
-              "for bit")
-        rep.update(write_s=write_s, load_s=load_s, pngs=n_png, coverage=cov)
-        del ds, written
+    # ---- (b) loaded back
+    with timed("real capture: load"):
+        t0 = time.perf_counter()
+        ds = dataset.load_sequence(cap)
+        load_s = time.perf_counter() - t0
+    n_png = sum(len([f for f in os.listdir(os.path.join(cap, sub)) if f.endswith(".png")])
+                for sub in ("images", "masks", "normal_F", "normal_B"))
+    S, F = REAL_SIZE, REAL_FRAMES
+    shapes = {k: getattr(ds, k).shape for k in ("images", "masks", "normal_F", "normal_B",
+                                                 "normal_mask", "images_crop", "masks_crop")}
+    check(shapes == {"images": (F, S, S, 3), "masks": (F, S, S), "normal_F": (F, S, S, 3),
+                     "normal_B": (F, S, S, 3), "normal_mask": (F, S, S),
+                     "images_crop": (F, 512, 512, 3), "masks_crop": (F, 512, 512)},
+          f"real capture: loaded shapes {shapes}")
+    check(n_png == 4 * F and np.array_equal(ds.w2c, np.diag([1, -1, -1, 1]).astype(np.float32)),
+          f"real capture: {n_png} PNGs, w2c {ds.w2c.tolist()} (want the row 1:3 flip)")
+    with timed("real capture: decode check"):
+        bad = [p for p, u8 in written.items() if not np.array_equal(read_png(p), u8)]
+    check(not bad, f"real capture: decoded PNGs differ from what was written: {bad[:4]}")
+    print(f"[real capture] load_sequence: {n_png} PNGs in {load_s:.3f} s (crops included); "
+          f"shapes {json.dumps({k: list(v) for k, v in shapes.items()})}; w2c rows 1:3 "
+          f"flipped; all {len(written)} decoded PNGs equal the uint8 images written, bit "
+          "for bit")
+    rep.update(write_s=write_s, load_s=load_s, pngs=n_png, coverage=cov)
+    del ds, written
 
-        # ---- (c) the training CLI through both stages
-        out = os.path.join(d, "run")
-        argv = ["--dataroot", cap, "--smpl-model", body, "--num-subdiv", str(REAL_SUBDIV),
-                "--gen-res", "256", "--guidance", "imagedream", "--mock-guidance",
-                "--lpips-weights", lpips_path, "--stage", "both", "--steps", str(REAL_STEPS),
-                "--sds-start", "0", "--eval", "--log-every", "1", "--device", device,
-                "--out", out]
-        record = {"stages": []}
-        undo = [instrument_train_steps(record), time_calls(common, "real_setup", record),
-                time_calls(avatar_state, "reset_field", record)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        bc.launches = 0
-        bc.bwd_launches = 0
-        try:
-            with timed("real capture: cli.train"):
-                secs, text, rows, _ = run_train_cli(argv)
-        finally:
-            for u in undo:
-                u()
-        fwd, bwd = bc.launches, bc.bwd_launches
-        peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        calls = record["stages"]
-        check(len(calls) == 2 and all(len(c) == REAL_STEPS for c in calls),
-              f"real capture: step calls per stage {[len(c) for c in calls]}")
-        per_step = {(c["fwd"], c["bwd"]) for st in calls for c in st}
-        check(per_step == {(FWD_PER_STEP, BWD_PER_STEP)},
-              f"real capture: composite launches per step {per_step}, want "
-              f"{(FWD_PER_STEP, BWD_PER_STEP)}")
-        n_steps = 2 * REAL_STEPS
-        check(bwd == BWD_PER_STEP * n_steps and fwd >= FWD_PER_STEP * n_steps,
-              f"real capture: {fwd} forward, {bwd} backward launches in the CLI run")
-        check(len(rows) == n_steps, f"real capture: {len(rows)} metrics rows")
-        for r in rows:
-            check(all(np.isfinite(r[k]) for k in ("loss", "loss_normal_F", "loss_normal_B")),
-                  f"real capture: a loss is not finite: {r}")
-            check("loss_sds" not in r or np.isfinite(r["loss_sds"]),
-                  f"real capture: loss_sds not finite: {r}")
-        guided = [[("loss_sds" in r) for r in rows if r["stage"] == st] for st in (0, 1)]
-        check(guided == [[False] + [True] * (REAL_STEPS - 1)] * 2,
-              f"real capture: guided rows {guided} (sds-start 0: from each stage's step 1)")
-        cpu_compute, cpu_moves, n_ops, n_syncs = record["host_ops"]
-        check(not cpu_compute, f"real capture: an op of a step computed on the CPU: {cpu_compute}")
-        prof = record["profile"]
-        check(prof["device_busy_ms"] > 0 and prof["composite_fwd_ms"] > 0
-              and prof["composite_bwd_ms"] > 0, "real capture: the profiler saw no kernel")
-        skip = {REAL_HOST_OPS_CALL, REAL_PROFILE_CALL}
-        ms = [float(np.median([c["ms"] for i, c in enumerate(st) if i > 0
-                               and not (s == 1 and i in skip)])) for s, st in enumerate(calls)]
-        prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["profiled_wall_ms"]
-        check(f"precomputed ip tokens for {F} frames (stage 0" in text
-              and f"precomputed ip tokens for {F} frames (stage 1" in text,
-              "real capture: no precomputed-ip-tokens lines for both stages")
-        avg = [float(x) for x in open(os.path.join(out, "test", "average.txt")).read().split()]
-        check(len(avg) == 3 and all(np.isfinite(avg)), f"real capture: average.txt {avg}")
-        setup_s, distill_s = record["real_setup"][0], record["reset_field"][0]
-        dropped = [r["raster_dropped"] for r in rows]
-        capped = [r["raster_capped"] for r in rows]
-        print(f"[real capture] cli.train {' '.join(a if a != lpips_path else '<pickle>' for a in argv[:-4])}"
-              f": {secs:.2f} s; real_setup {setup_s:.3f} s (field distillation, 1000 steps, "
-              f"{distill_s:.3f} s); ms/step (synced, median after the first) stage 0 "
-              f"{ms[0]:.3f}, stage 1 {ms[1]:.3f}; per step {[round(c['ms'], 3) for c in calls[0]]}"
-              f" and {[round(c['ms'], 3) for c in calls[1]]}; launches fwd {fwd}, bwd {bwd} "
-              f"({FWD_PER_STEP} and {BWD_PER_STEP} in every step; the rest the eval's renders); "
-              f"raster_dropped {min(dropped):.0f}-{max(dropped):.0f}, raster_capped "
-              f"{min(capped):.0f}-{max(capped):.0f}; peak memory {peak_gib:.3f} GiB")
-        print(f"[real capture] stage-1 step: {n_ops} aten ops, {n_syncs} host syncs, none "
-              f"computed on the CPU (transfers {cpu_moves}); profiled: device busy "
-              f"{prof['device_busy_ms']:.3f} ms in {prof['device_kernels']} device ops, wall "
-              f"{prof['profiled_wall_ms']:.3f} ms, idle share {prof['idle_share']:.4f}")
-        print(f"[real capture] eval after {REAL_STEPS} + {REAL_STEPS} steps (test frames, "
-              f"reported, not gated): PSNR {avg[0]:.4f}, SSIM {avg[1]:.4f}, LPIPS {avg[2]:.4f}")
-        print("[real capture] last step's metrics " + json.dumps(rows[-1]))
-        rep.update(cli_s=secs, real_setup_s=setup_s, distill_s=distill_s, ms_per_step=ms,
-                   step_ms=[[c["ms"] for c in st] for st in calls], launches_fwd=fwd,
-                   launches_bwd=bwd, rows=rows, peak_memory_gib=peak_gib, profile=prof,
-                   aten_ops=n_ops, host_syncs=n_syncs, average=avg)
+    # ---- (c) the training CLI through both stages
+    out = os.path.join(d, "run")
+    argv = ["--dataroot", cap, "--smpl-model", body, "--num-subdiv", str(REAL_SUBDIV),
+            "--gen-res", "256", "--guidance", "imagedream", "--mock-guidance",
+            "--lpips-weights", lpips_path, "--stage", "both", "--steps", str(REAL_STEPS),
+            "--sds-start", "0", "--eval", "--log-every", "1", "--device", device,
+            "--out", out]
+    record = {"stages": []}
+    undo = [instrument_train_steps(record), time_calls(common, "real_setup", record),
+            time_calls(avatar_state, "reset_field", record)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bc.launches = 0
+    bc.bwd_launches = 0
+    try:
+        with timed("real capture: cli.train"):
+            secs, text, rows, _ = run_train_cli(argv)
+    finally:
+        for u in undo:
+            u()
+    fwd, bwd = bc.launches, bc.bwd_launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    calls = record["stages"]
+    check(len(calls) == 2 and all(len(c) == REAL_STEPS for c in calls),
+          f"real capture: step calls per stage {[len(c) for c in calls]}")
+    per_step = {(c["fwd"], c["bwd"]) for st in calls for c in st}
+    check(per_step == {(FWD_PER_STEP, BWD_PER_STEP)},
+          f"real capture: composite launches per step {per_step}, want "
+          f"{(FWD_PER_STEP, BWD_PER_STEP)}")
+    n_steps = 2 * REAL_STEPS
+    check(bwd == BWD_PER_STEP * n_steps and fwd >= FWD_PER_STEP * n_steps,
+          f"real capture: {fwd} forward, {bwd} backward launches in the CLI run")
+    check(len(rows) == n_steps, f"real capture: {len(rows)} metrics rows")
+    for r in rows:
+        check(all(np.isfinite(r[k]) for k in ("loss", "loss_normal_F", "loss_normal_B")),
+              f"real capture: a loss is not finite: {r}")
+        check("loss_sds" not in r or np.isfinite(r["loss_sds"]),
+              f"real capture: loss_sds not finite: {r}")
+    guided = [[("loss_sds" in r) for r in rows if r["stage"] == st] for st in (0, 1)]
+    check(guided == [[False] + [True] * (REAL_STEPS - 1)] * 2,
+          f"real capture: guided rows {guided} (sds-start 0: from each stage's step 1)")
+    cpu_compute, cpu_moves, n_ops, n_syncs = record["host_ops"]
+    check(not cpu_compute, f"real capture: an op of a step computed on the CPU: {cpu_compute}")
+    prof = record["profile"]
+    check(prof["device_busy_ms"] > 0 and prof["composite_fwd_ms"] > 0
+          and prof["composite_bwd_ms"] > 0, "real capture: the profiler saw no kernel")
+    skip = {REAL_HOST_OPS_CALL, REAL_PROFILE_CALL}
+    ms = [float(np.median([c["ms"] for i, c in enumerate(st) if i > 0
+                           and not (s == 1 and i in skip)])) for s, st in enumerate(calls)]
+    prof["idle_share"] = 1.0 - prof["device_busy_ms"] / prof["profiled_wall_ms"]
+    check(f"precomputed ip tokens for {F} frames (stage 0" in text
+          and f"precomputed ip tokens for {F} frames (stage 1" in text,
+          "real capture: no precomputed-ip-tokens lines for both stages")
+    avg = [float(x) for x in open(os.path.join(out, "test", "average.txt")).read().split()]
+    check(len(avg) == 3 and all(np.isfinite(avg)), f"real capture: average.txt {avg}")
+    setup_s, distill_s = record["real_setup"][0], record["reset_field"][0]
+    dropped = [r["raster_dropped"] for r in rows]
+    capped = [r["raster_capped"] for r in rows]
+    print(f"[real capture] cli.train {' '.join(a if a != lpips_path else '<pickle>' for a in argv[:-4])}"
+          f": {secs:.2f} s; real_setup {setup_s:.3f} s (field distillation, 1000 steps, "
+          f"{distill_s:.3f} s); ms/step (synced, median after the first) stage 0 "
+          f"{ms[0]:.3f}, stage 1 {ms[1]:.3f}; per step {[round(c['ms'], 3) for c in calls[0]]}"
+          f" and {[round(c['ms'], 3) for c in calls[1]]}; launches fwd {fwd}, bwd {bwd} "
+          f"({FWD_PER_STEP} and {BWD_PER_STEP} in every step; the rest the eval's renders); "
+          f"raster_dropped {min(dropped):.0f}-{max(dropped):.0f}, raster_capped "
+          f"{min(capped):.0f}-{max(capped):.0f}; peak memory {peak_gib:.3f} GiB")
+    print(f"[real capture] stage-1 step: {n_ops} aten ops, {n_syncs} host syncs, none "
+          f"computed on the CPU (transfers {cpu_moves}); profiled: device busy "
+          f"{prof['device_busy_ms']:.3f} ms in {prof['device_kernels']} device ops, wall "
+          f"{prof['profiled_wall_ms']:.3f} ms, idle share {prof['idle_share']:.4f}")
+    print(f"[real capture] eval after {REAL_STEPS} + {REAL_STEPS} steps (test frames, "
+          f"reported, not gated): PSNR {avg[0]:.4f}, SSIM {avg[1]:.4f}, LPIPS {avg[2]:.4f}")
+    print("[real capture] last step's metrics " + json.dumps(rows[-1]))
+    rep.update(cli_s=secs, real_setup_s=setup_s, distill_s=distill_s, ms_per_step=ms,
+               step_ms=[[c["ms"] for c in st] for st in calls], launches_fwd=fwd,
+               launches_bwd=bwd, rows=rows, peak_memory_gib=peak_gib, profile=prof,
+               aten_ops=n_ops, host_syncs=n_syncs, average=avg)
 
-        # ---- (d) the turntable and the mesh from its checkpoint
-        flags = ["--dataroot", cap, "--smpl-model", body, "--num-subdiv", str(REAL_SUBDIV),
-                 "--device", device]
-        ckpt = os.path.join(out, "stage1")
-        rot = os.path.join(d, "rot")
-        with timed("real capture: render_rot"):
-            t0 = time.perf_counter()
-            render_rot.main(flags + ["--ckpt", ckpt, "--num-views", "2", "--out", rot])
-            rot_s = time.perf_counter() - t0
-        pngs = sorted(f for f in os.listdir(rot) if f.endswith(".png"))
-        shapes = {read_png(os.path.join(rot, f)).shape for f in pngs}
-        check(len(pngs) == 8 and shapes == {(S, S, 3)}, f"real capture: render_rot {pngs} {shapes}")
-        obj = os.path.join(d, "mesh.obj")
-        with timed("real capture: export_mesh"):
-            t0 = time.perf_counter()
-            stats = export_mesh.main(flags + ["--ckpt", ckpt, "--field-attrs", "--resolution",
-                                              str(EXPORT_RESOLUTION), "--out", obj])
-            export_s = time.perf_counter() - t0
-        check(read_obj_counts(obj) == (stats["verts"], stats["faces"]) and stats["faces"] > 100,
-              f"real capture: export {stats}")
-        print(f"[real capture] render_rot --ckpt stage1 --num-views 2: {rot_s:.3f} s, {len(pngs)} "
-              f"PNGs of {S}x{S}; export_mesh --ckpt stage1 --field-attrs --resolution "
-              f"{EXPORT_RESOLUTION}: {export_s:.3f} s, {stats['verts']} vertices, "
-              f"{stats['faces']} faces read back")
-        rep.update(render_rot_s=rot_s, export_s=export_s, export=stats)
+    # ---- (d) the turntable and the mesh from its checkpoint
+    flags = ["--dataroot", cap, "--smpl-model", body, "--num-subdiv", str(REAL_SUBDIV),
+             "--device", device]
+    ckpt = os.path.join(out, "stage1")
+    rot = os.path.join(d, "rot")
+    with timed("real capture: render_rot"):
+        t0 = time.perf_counter()
+        render_rot.main(flags + ["--ckpt", ckpt, "--num-views", "2", "--out", rot])
+        rot_s = time.perf_counter() - t0
+    pngs = sorted(f for f in os.listdir(rot) if f.endswith(".png"))
+    shapes = {read_png(os.path.join(rot, f)).shape for f in pngs}
+    check(len(pngs) == 8 and shapes == {(S, S, 3)}, f"real capture: render_rot {pngs} {shapes}")
+    obj = os.path.join(d, "mesh.obj")
+    with timed("real capture: export_mesh"):
+        t0 = time.perf_counter()
+        stats = export_mesh.main(flags + ["--ckpt", ckpt, "--field-attrs", "--resolution",
+                                          str(EXPORT_RESOLUTION), "--out", obj])
+        export_s = time.perf_counter() - t0
+    check(read_obj_counts(obj) == (stats["verts"], stats["faces"]) and stats["faces"] > 100,
+          f"real capture: export {stats}")
+    print(f"[real capture] render_rot --ckpt stage1 --num-views 2: {rot_s:.3f} s, {len(pngs)} "
+          f"PNGs of {S}x{S}; export_mesh --ckpt stage1 --field-attrs --resolution "
+          f"{EXPORT_RESOLUTION}: {export_s:.3f} s, {stats['verts']} vertices, "
+          f"{stats['faces']} faces read back")
+    rep.update(render_rot_s=rot_s, export_s=export_s, export=stats)
     return rep
+
+
+def hold_launches_against_plain(label, fwd, bwd):
+    """Every recorded launch (:func:`record_launches`) run again through its
+    kernel and held against its plain version on the same inputs, with the
+    gates of the synthetic checks (:func:`gate_fwd`, :func:`gate_bwd`).
+    Returns the worst share and error over the launches."""
+    from soar_tpu_torch.render import block_composite as bc
+    from soar_tpu_torch.render.composite import composite_block_bwd_plain, composite_block_plain
+
+    worst = {"fwd_max_abs_err": 0.0, "fwd_share": 0.0, "bwd_max_abs_err": 0.0,
+             "bwd_share": 0.0, "bwd_col_rel": 0.0, "channels": sorted(
+                 {r[0].shape[-1] - 9 for r in fwd} | {r[0].shape[-1] - 9 for r in bwd})}
+    with torch.no_grad():
+        for i, (feat, pixf, *consts) in enumerate(fwd):
+            args = unpack_feat(feat, pixf)
+            errs, share = gate_fwd(f"{label} forward launch {i}",
+                                   bc.composite_block(*args, *consts),
+                                   composite_block_plain(*args, *consts))
+            worst["fwd_max_abs_err"] = max(worst["fwd_max_abs_err"], max(errs.values()))
+            worst["fwd_share"] = max(worst["fwd_share"], share)
+        for i, (feat, pixf, gacc, gcorr, gT, *consts) in enumerate(bwd):
+            got = bc._launch_bwd(feat, pixf, gacc, gcorr, gT, *consts)
+            want = composite_block_bwd_plain(*unpack_feat(feat, pixf), gacc, gcorr, gT, *consts)
+            rel, share, err = gate_bwd(f"{label} backward launch {i}", got, want)
+            worst["bwd_max_abs_err"] = max(worst["bwd_max_abs_err"], err)
+            worst["bwd_share"] = max(worst["bwd_share"], share)
+            worst["bwd_col_rel"] = max(worst["bwd_col_rel"], max(rel))
+    print(f"[main path {label}] {len(fwd)} forward and {len(bwd)} backward launches (C "
+          f"{worst['channels']}) held against their plain versions: forward max|kernel-plain| "
+          f"{worst['fwd_max_abs_err']:.3g}, pixels beyond {KERNEL_TOL} {worst['fwd_share']:.4%}; "
+          f"backward max|kernel-plain|/column max {worst['bwd_col_rel']:.3g}, entries beyond "
+          f"{KERNEL_TOL} x column max {worst['bwd_share']:.4%}")
+    return worst
+
+
+# The YAML configs, read on the card by the port's own reader (no PyYAML
+# there): (stage, max_steps, loss.mask, max_step_percent) of each.
+YAML_CONFIGS = {"configs/surfel_stage0.yaml": (0, 1000, 1.0, (0, 0.75, 0.25, 2000)),
+                "configs/surfel_stage1.yaml": (1, 1000, 10.0, (0, 0.75, 0.25, 1000))}
+
+
+def run_yaml_config():
+    import importlib.util
+
+    from soar_tpu_torch.train.yaml_config import load_yaml_config
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for rel, want in YAML_CONFIGS.items():
+        t0 = time.perf_counter()
+        cfg = load_yaml_config(os.path.join(root, rel))
+        secs = time.perf_counter() - t0
+        st = cfg["stage"]
+        got = (st.training_stage, st.max_steps, st.loss.mask, st.max_step_percent)
+        check(got == want, f"yaml config {rel}: {got}, want {want}")
+        out[rel] = {"stage": got[0], "max_steps": got[1], "loss_mask": got[2],
+                    "max_step_percent": list(got[3]), "s": secs}
+        print(f"[yaml config] {rel}: stage {got[0]}, max_steps {got[1]}, loss.mask {got[2]}, "
+              f"max_step_percent {list(got[3])}, sds_start {st.sds_start}; read in "
+              f"{secs * 1e3:.3f} ms by soar_tpu_torch.io.yaml_subset (PyYAML here: "
+              f"{'yes' if importlib.util.find_spec('yaml') else 'no'})")
+    return out
+
+
+# The reference's attribute field at its own widths (SURVEY section 1,
+# geometry/sdf_fields.py:68-83): 16 levels from 16 to 2048, 2^18-row tables,
+# 2 features a level, 64-wide 2-layer heads.
+REF_LEVELS, REF_BASE_RES, REF_MAX_RES, REF_LOG2_ROWS, REF_HIDDEN = 16, 16, 2048, 18, 64
+REF_SUBSET = 4096  # points held against the CPU
+REF_FIELD_TOL = 1e-5
+REF_STEPS = 4
+
+
+def reference_state_dict(params, model, layout, seed):
+    """A Lightning-layout state_dict at the reference's widths: the explicit
+    surfel tensors of ``params`` (colours, opacity and occ logits drawn from
+    ``seed``) and the attribute field, random from ``seed``, in the tcnn
+    layout (packed fp16 grid and MLP buffers; the offsets head is a torch
+    Linear stack there, as in the reference) or the torch layout (hash
+    tables and Linear stacks); all on the CPU, as a file holds them."""
+    from soar_tpu_torch.field.reference_import import tcnn_grid_layout
+
+    g = torch.Generator().manual_seed(seed)
+    N = params.xyz.shape[0]
+
+    def randn(*shape, scale=1.0):
+        return scale * torch.randn(shape, generator=g)
+
+    pre = "geometry.attribute_field."
+    sd = {
+        "geometry._xyz": params.xyz.detach().cpu().clone(),
+        "geometry._rotation": params.rotation.detach().cpu().clone(),
+        "geometry._scaling": params.scaling.detach().cpu().clone(),
+        "geometry._opacity": randn(N, 1),
+        "geometry._colors": randn(N, 3),
+        "geometry._occ": randn(N, 1),
+        "geometry.latent_pose": torch.zeros_like(params.latent_pose.detach().cpu()),
+        pre + "aabb": model.aabb.detach().cpu().clone(),
+        pre + "num_levels": torch.tensor(REF_LEVELS),
+        pre + "max_res": torch.tensor(REF_MAX_RES),
+        pre + "log2_hashmap_size": torch.tensor(REF_LOG2_ROWS),
+    }
+    enc = 2 * REF_LEVELS
+    heads = {"mlp_base_shs": 3, "mlp_base_scales": 1, "mlp_base_quats": 4,
+             "mlp_base_offsets": 3, "mlp_base_opacities": 1}
+
+    def linear_head(name, out):
+        ind = enc + 2 if name == "mlp_base_offsets" else enc
+        sd[f"{pre}{name}.layers.0.weight"] = randn(REF_HIDDEN, ind, scale=0.1)
+        sd[f"{pre}{name}.layers.0.bias"] = randn(REF_HIDDEN, scale=0.1)
+        sd[f"{pre}{name}.layers.1.weight"] = randn(out, REF_HIDDEN, scale=0.1)
+        sd[f"{pre}{name}.layers.1.bias"] = randn(out, scale=0.1)
+
+    if layout == "tcnn":
+        rows = tcnn_grid_layout(REF_LEVELS, REF_BASE_RES, REF_MAX_RES,
+                                REF_LOG2_ROWS).row_offsets[-1]
+        for e in ("encoding", "quat_encoding"):
+            sd[f"{pre}{e}.tcnn_encoding.params"] = randn(rows * 2, scale=0.01).half()
+        for name, out in heads.items():
+            if name == "mlp_base_offsets":
+                linear_head(name, out)
+            else:
+                size = REF_HIDDEN * (-(-enc // 16) * 16) + (-(-out // 16) * 16) * REF_HIDDEN
+                sd[f"{pre}{name}.tcnn_encoding.params"] = randn(size, scale=0.1).half()
+    else:
+        for e in ("encoding", "quat_encoding"):
+            sd[f"{pre}{e}.hash_table"] = randn(REF_LEVELS << REF_LOG2_ROWS, 2, scale=0.01)
+        for name, out in heads.items():
+            linear_head(name, out)
+    return sd
+
+
+def run_reference_import(device, d):
+    """The reference-checkpoint path at full width, on the capture that
+    :func:`run_real_capture` left in ``d/capture``: (a) the avatar
+    ``real_setup`` builds there (``test:10,7,28``, 3 subdivisions; its
+    surfel count read from it); (b) a Lightning ``.ckpt`` of that many
+    surfels with the reference-width field, written in the tcnn and in the
+    torch layout (``torch.save``, no file fetched); (c) per layout,
+    ``reference_field_apply`` at every surfel on the card, timed, against
+    the CPU on a 4,096-point subset; (d) ``cli.train --config
+    configs/surfel_stage0.yaml --import-ckpt <tcnn file>`` on the capture,
+    4 steps (guided from step 1), counted (13 + 8 launches a step), with ``--trace-steps
+    1``; (e) ``cli.render_rot --ckpt <tcnn file>``, counted."""
+    import glob
+
+    from soar_tpu_torch.cli import common, render_rot
+    from soar_tpu_torch.cli import train as train_cli
+    from soar_tpu_torch.field.reference_import import reference_field_apply
+    from soar_tpu_torch.io.checkpoint import (
+        import_reference_field_from_ckpt,
+        load_reference_state_dict,
+    )
+    from soar_tpu_torch.render.block_composite import composite_block as bc
+
+    rep = {}
+    cap = os.path.join(d, "capture")
+    body = "test:" + ",".join(str(x) for x in REAL_BODY_DIMS)
+    flags = ["--dataroot", cap, "--smpl-model", body, "--num-subdiv", str(REAL_SUBDIV),
+             "--device", device]
+    with timed("reference import: avatar"):
+        _, params, model = common.real_setup(cap, body, num_subdiv=REAL_SUBDIV,
+                                             distill_steps=0, device=device)
+    N = params.xyz.shape[0]
+    check(N == 125_664, f"reference import: the capture's avatar has {N} surfels")
+    paths = {}
+    for layout, seed in (("tcnn", 21), ("torch", 22)):
+        paths[layout] = os.path.join(d, f"reference_{layout}.ckpt")
+        with timed("reference import: write"):
+            torch.save({"state_dict": reference_state_dict(params, model, layout, seed),
+                        "global_step": 0}, paths[layout])
+    del params, model
+    torch.cuda.empty_cache()
+
+    # ---- (c) the field at every surfel, card against CPU
+    fields = {}
+    for layout, path in paths.items():
+        t0 = time.perf_counter()
+        sd = load_reference_state_dict(path)
+        load_s = time.perf_counter() - t0
+        xyz = sd["geometry._xyz"].to(device)
+        rf = import_reference_field_from_ckpt(path, state_dict=sd, device=device)
+        rf_cpu = import_reference_field_from_ckpt(path, state_dict=sd, device="cpu")
+        check(rf.tcnn == (layout == "tcnn"), f"reference import: {layout} read as another layout")
+        with torch.no_grad():
+            out = reference_field_apply(rf, xyz)
+            torch.cuda.synchronize()
+            ms = cuda_ms(lambda: reference_field_apply(rf, xyz), 10)
+            sub = torch.randperm(N, generator=torch.Generator().manual_seed(5))[:REF_SUBSET]
+            want = reference_field_apply(rf_cpu, xyz.cpu()[sub])
+        err = max(float((out[k][sub.to(device)].cpu() - want[k]).abs().max()) for k in want)
+        check(all(bool(torch.isfinite(v).all()) for v in out.values()),
+              f"reference import: {layout} field output not finite")
+        check(err <= REF_FIELD_TOL, f"reference import: {layout} field, card vs CPU {err:.3g}")
+        fields[layout] = {"load_s": load_s, "apply_ms": ms, "max_abs_err_vs_cpu": err,
+                          "file_mb": os.path.getsize(path) / 2**20}
+        print(f"[reference import] {layout} layout ({fields[layout]['file_mb']:.1f} MiB): "
+              f"torch.load {load_s:.3f} s; reference_field_apply at {N} points {ms:.3f} ms "
+              f"(CUDA events, 10 calls); card vs CPU on {REF_SUBSET} points max|diff| "
+              f"{err:.3g} (bound {REF_FIELD_TOL})")
+        del sd, xyz, rf, rf_cpu, out
+    rep["fields"] = fields
+
+    # ---- (d) the training CLI with --config and --import-ckpt
+    out_dir = os.path.join(d, "import_run")
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = flags + ["--config", os.path.join(root, "configs/surfel_stage0.yaml"),
+                    "--import-ckpt", paths["tcnn"], "--steps", str(REF_STEPS), "--guidance",
+                    "imagedream", "--mock-guidance", "--sds-start", "0", "--trace-steps", "1",
+                    "--log-every", "1", "--dump-every", "0", "--val-every", "0", "--out",
+                    out_dir]
+    record = {"stages": []}
+    undo = [instrument_train_steps(record), time_calls(common, "real_setup", record),
+            time_calls(train_cli, "import_reference_warm_start", record)]
+    torch.cuda.synchronize()
+    bc.launches = 0
+    bc.bwd_launches = 0
+    try:
+        with timed("reference import: cli.train"):
+            secs, text, rows, _ = run_train_cli(argv)
+    finally:
+        for u in undo:
+            u()
+    fwd, bwd = bc.launches, bc.bwd_launches
+    calls = record["stages"]
+    check(len(calls) == 1 and len(calls[0]) == REF_STEPS,
+          f"reference import: step calls per stage {[len(c) for c in calls]} (--config: stage 0)")
+    per_step = {(c["fwd"], c["bwd"]) for c in calls[0]}
+    check(per_step == {(FWD_PER_STEP, BWD_PER_STEP)},
+          f"reference import: composite launches per step {per_step}")
+    check((fwd, bwd) == (FWD_PER_STEP * REF_STEPS, BWD_PER_STEP * REF_STEPS),
+          f"reference import: {fwd} forward, {bwd} backward launches in the CLI run")
+    check("--config defines stage 0" in text and "distilled reference attribute field" in text
+          and "imported reference ckpt" in text, "reference import: the CLI's import lines")
+    check(len(rows) == REF_STEPS and all(np.isfinite(r["loss"]) for r in rows)
+          and all(np.isfinite(r["loss_sds"]) for r in rows[1:]) and "loss_sds" not in rows[0],
+          f"reference import: metrics rows {rows}")
+    traces = glob.glob(os.path.join(out_dir, "trace", "*.json"))
+    check(len(traces) == 1 and os.path.getsize(traces[0]) > 0,
+          f"reference import: --trace-steps 1 wrote {traces}")
+    # Step 0 runs under the trace and step 1 is the first guided step (its
+    # networks' first calls): the median is over the steps after them.
+    ms = float(np.median([c["ms"] for c in calls[0][2:]]))
+    import_s = record["import_reference_warm_start"][0]
+    print(f"[reference import] cli.train --dataroot <capture> --smpl-model {body} --num-subdiv "
+          f"{REAL_SUBDIV} --config configs/surfel_stage0.yaml --import-ckpt <tcnn file> --steps "
+          f"{REF_STEPS} --guidance imagedream --mock-guidance --sds-start 0 --trace-steps 1: "
+          f"{secs:.2f} s; real_setup {record['real_setup'][0]:.3f} s; import and distillation "
+          f"(1000 steps, minibatch 65,536) {import_s:.3f} s; ms/step (synced, median of steps 2-"
+          f"{REF_STEPS - 1}: the trace wraps step 0, step 1 is the first guided) {ms:.3f}, per "
+          f"step "
+          f"{[round(c['ms'], 3) for c in calls[0]]}; launches fwd {fwd}, bwd {bwd} "
+          f"({FWD_PER_STEP} and {BWD_PER_STEP} a step); trace {os.path.basename(traces[0])} "
+          f"({os.path.getsize(traces[0]) / 2**20:.2f} MiB); losses {[r['loss'] for r in rows]}")
+    rep.update(cli_s=secs, real_setup_s=record["real_setup"][0], import_s=import_s,
+               ms_per_step=ms, step_ms=[c["ms"] for c in calls[0]], launches_fwd=fwd,
+               launches_bwd=bwd, rows=rows, trace_mib=os.path.getsize(traces[0]) / 2**20)
+
+    # ---- (e) the turntable from the reference .ckpt
+    rot = os.path.join(d, "import_rot")
+    bc.launches = 0
+    tee = _Tee(sys.stdout)
+    import contextlib
+
+    with timed("reference import: render_rot"), contextlib.redirect_stdout(tee):
+        t0 = time.perf_counter()
+        render_rot.main(flags + ["--ckpt", paths["tcnn"], "--num-views", "2", "--out", rot])
+        rot_s = time.perf_counter() - t0
+    rot_fwd = bc.launches
+    pngs = sorted(f for f in os.listdir(rot) if f.endswith(".png"))
+    check(len(pngs) == 8 and rot_fwd == 2 * NUM_VIEWS,
+          f"reference import: render_rot wrote {pngs}, {rot_fwd} launches")
+    check("imported reference attribute field (tcnn layout)" in "".join(tee.text),
+          "reference import: render_rot did not render the reference field")
+    print(f"[reference import] render_rot --ckpt <tcnn file> --num-views 2: {rot_s:.3f} s "
+          f"(the .ckpt read, the field evaluated once at every surfel), {len(pngs)} PNGs, "
+          f"{rot_fwd} forward launches")
+    rep.update(render_rot_s=rot_s, render_rot_launches=rot_fwd)
+    return rep
+
+
+# The GaussianDreamer step at full width: the bench scene padded to twice its
+# surfels, DreamerConfig's defaults (4 views at 256x256, K=96, dup_side 5,
+# surface off, sigmoid opacities) and full-shape bf16 mock MVDream guidance.
+# Only the cadence is cut, to fit 6 steps: densify at steps 2 and 4; prune at
+# step 5, apart from a densify (a densify resets the visibility counts that
+# prune reads, so a step that runs both prunes every surfel; ROADMAP Queue 3).
+DREAMER_STEPS = 6
+DREAMER_CADENCE = dict(densify_from=2, densify_interval=2, prune_from=5, prune_interval=5)
+DREAMER_FWD_PER_STEP = 8  # 4 views x (main pass at C=4 + occ pass at C=3)
+DREAMER_BWD_PER_STEP = 4  # the 4 main passes (the occ image is not in the loss)
+# The first densify's threshold: this quantile of the mean position-gradient
+# norm over the surfels a densify could take, so it fills some dead slots.
+DREAMER_THRESHOLD_QUANTILE = 0.5
+DREAMER_LOSS_RTOL = 1e-3
+# The text-only 4-view UNet (sd-v2.1-base-4view): the ImageDream UNet
+# without its image-prompt branch.
+UNET_PARAMS_MV = 867_572_164
+DREAMER_HOST_OPS_STEP, DREAMER_PROFILE_STEP = 1, 3
+
+
+def run_dreamer(params, model, device):
+    """The GaussianDreamer system (``train.systems.make_gaussiandreamer_step``)
+    at full width: 6 steps with densify and prune, counted (8 forward and 4
+    backward launches a step), one loss step under host_ops (no host sync,
+    no op on the CPU) and one profiled; the alive count after each
+    ``maintain``; a step's launches recorded, replayed and held against
+    their plain versions at C = 4; the kernel step against the plain one
+    with float32 networks; a gradient on the opacity logits; dead slots
+    never counted visible; parameters and Adam moments finite."""
+    import dataclasses
+
+    from soar_tpu_torch.avatar.densify import DensifyState, pad_to_capacity
+    from soar_tpu_torch.avatar.optim import make_optimizer
+    from soar_tpu_torch.body.skinning import knn_idw_weights
+    from soar_tpu_torch.guidance.build import build_guidance
+    from soar_tpu_torch.render.block_composite import composite_block as bc
+    from soar_tpu_torch.train import systems
+    from soar_tpu_torch.train.config import OptimConfig, StageConfig
+
+    N = params.xyz.shape[0]
+    cap = 2 * N
+    cfg = systems.DreamerConfig(**DREAMER_CADENCE)
+    check(cfg.n_views == 4 and cfg.image_size == (256, 256) and cfg.raster.max_per_tile == 96
+          and cfg.raster.dup_side == 5 and not cfg.raster.surface
+          and not cfg.raster.perpix_depth, f"dreamer: config {cfg}")
+    with timed("dreamer: set-up"):
+        dp = pad_to_capacity(params, cap)
+        with torch.no_grad():
+            pw = knn_idw_weights(dp.xyz, model.skin.cano_vertices, model.body.lbs_weights)
+        dstate = DensifyState.create(cap, N, device=device)
+        opt = make_optimizer(dp, OptimConfig())
+        g = build_guidance("mvdream", StageConfig(),
+                           generator=torch.Generator(device=device).manual_seed(200), mock=True,
+                           image_size=256, n_view=cfg.n_views, dtype=torch.bfloat16,
+                           device=device)
+        torch.cuda.synchronize()
+    n_unet = sum(p.numel() for p in g.unet.parameters())
+    check(g.embed_ref is None and n_unet == UNET_PARAMS_MV
+          and all(p.dtype == torch.bfloat16 for p in g.unet.parameters()),
+          f"dreamer: guidance not the text-only bf16 UNet ({n_unet} parameters, want "
+          f"{UNET_PARAMS_MV})")
+    loss_step, maintain = systems.make_gaussiandreamer_step(model, cfg, opt, g)
+    gen = torch.Generator(device=device).manual_seed(3)
+    alive_counts, threshold, eligible, dead_denom = [], None, None, 0.0
+
+    # ---- the main path, counted: launch counters 0 just before, read after
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    bc.launches = 0
+    bc.bwd_launches = 0
+    step_ms, metrics, host, prof = [], [], None, None
+    with timed("dreamer: 6 steps"):
+        for it in range(DREAMER_STEPS):
+            draws = systems.sample_dreamer_draws(gen, cfg, latent_size=g.latent_size)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            if it == DREAMER_HOST_OPS_STEP:
+                out = []
+                host = host_ops(lambda: out.append(loss_step(dp, dstate, pw, draws, it)))
+                dp, dstate, m = out[0]
+            elif it == DREAMER_PROFILE_STEP:
+                out = []
+                prof = profile_view(lambda: out.append(loss_step(dp, dstate, pw, draws, it)))
+                dp, dstate, m = out[0]
+            else:
+                dp, dstate, m = loss_step(dp, dstate, pw, draws, it)
+            ev[1].record()
+            torch.cuda.synchronize()
+            step_ms.append(ev[0].elapsed_time(ev[1]))
+            metrics.append({k: float(v) for k, v in m.items()})
+            with torch.no_grad():  # slots dead during the step were never counted
+                dead_denom = max(dead_denom,
+                                 float(torch.where(dstate.alive, 0.0, dstate.denom).max()))
+            if it == cfg.densify_from:
+                # The threshold, from this run's statistics (read on the host
+                # outside the step): the surfels a densify could take are the
+                # alive, seen ones that would clone (small, scale gradient
+                # <= 1e-7, mean opacity logit <= 2) or split (large).
+                den = dstate.denom.clamp_min(1.0)
+                small = torch.exp(dp.scaling[:, 0]) <= 0.01 * cfg.extent
+                clone_ok = (dstate.scale_grad_accum / den <= 1e-7) & (
+                    dstate.opac_accum / den <= 2.0)
+                ok = dstate.alive & (dstate.denom > 0) & ((small & clone_ok) | ~small)
+                eligible = {"seen": int((dstate.alive & (dstate.denom > 0)).sum()),
+                            "small": int((small & dstate.alive).sum()),
+                            "clone_ok": int((clone_ok & dstate.alive & small).sum()),
+                            "eligible": int(ok.sum())}
+                check(eligible["eligible"] > 0, f"dreamer: no surfel can densify: {eligible}")
+                gp = (dstate.xyz_grad_accum / den)[ok]
+                threshold = float(torch.quantile(gp, DREAMER_THRESHOLD_QUANTILE))
+                _, maintain = systems.make_gaussiandreamer_step(
+                    model, dataclasses.replace(cfg, densify_grad_threshold=threshold), opt, g)
+            dp, dstate, pw = maintain(dp, dstate, pw, it, generator=gen)
+            alive_counts.append(int(dstate.alive.sum()))
+        torch.cuda.synchronize()
+    fwd, bwd = bc.launches, bc.bwd_launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check((fwd, bwd) == (DREAMER_FWD_PER_STEP * DREAMER_STEPS,
+                         DREAMER_BWD_PER_STEP * DREAMER_STEPS),
+          f"dreamer: {fwd} forward, {bwd} backward launches in {DREAMER_STEPS} steps")
+    check(all(np.isfinite(v) for r in metrics for v in r.values()),
+          f"dreamer: a loss is not finite: {metrics}")
+    first = cfg.densify_from
+    check(alive_counts[first] > alive_counts[first - 1] == N and max(alive_counts) <= cap,
+          f"dreamer: alive counts {alive_counts} (from {N}, capacity {cap})")
+    check(alive_counts[first] < cap, f"dreamer: the first densify filled every dead slot")
+    cpu_compute, cpu_moves, n_ops, n_syncs = host
+    check(not cpu_compute, f"dreamer: an op of the loss step computed on the CPU: {cpu_compute}")
+    check(n_syncs == 0, f"dreamer: {n_syncs} host syncs inside loss_step")
+    busy = prof["device_busy_ms"]
+    check(busy > 0 and prof["composite_fwd_ms"] > 0 and prof["composite_bwd_ms"] > 0,
+          "dreamer: the profiler saw no kernel")
+    timed_ms = [x for i, x in enumerate(step_ms)
+                if i not in (0, DREAMER_HOST_OPS_STEP, DREAMER_PROFILE_STEP)]
+    ms = float(np.median(timed_ms))
+    prof["idle_share"] = 1.0 - busy / prof["profiled_wall_ms"]
+    check(dead_denom == 0.0, f"dreamer: a dead slot was counted visible ({dead_denom})")
+    finite = all(bool(torch.isfinite(p).all()) for p in dp.parameters()) and all(
+        bool(torch.isfinite(v).all()) for st in opt.adam.state.values()
+        for v in st.values() if torch.is_tensor(v))
+    check(finite, "dreamer: a parameter or an Adam moment is not finite")
+    print(f"[dreamer] {N} surfels at capacity {cap}, 4 views 256x256, K=96, surface off, "
+          f"sigmoid opacities, bf16 mock MVDream (UNet {n_unet} parameters, text only): "
+          f"{ms:.3f} ms/step (CUDA events, synced; median of steps {[i for i in range(DREAMER_STEPS) if i not in (0, DREAMER_HOST_OPS_STEP, DREAMER_PROFILE_STEP)]}), "
+          f"per step {[round(x, 3) for x in step_ms]}; launches fwd {fwd}, bwd {bwd} "
+          f"({DREAMER_FWD_PER_STEP} and {DREAMER_BWD_PER_STEP} a step); peak memory "
+          f"{peak_gib:.3f} GiB")
+    print(f"[dreamer] first densify at step {first}: {eligible}, threshold {threshold:.4g} "
+          f"(quantile {DREAMER_THRESHOLD_QUANTILE}); alive after each maintain {alive_counts}; "
+          f"losses {[round(r['loss'], 6) for r in metrics]}")
+    print(f"[dreamer] loss step: {n_ops} aten ops, {n_syncs} host syncs, none on the CPU "
+          f"(transfers {cpu_moves}); profiled: device busy {busy:.3f} ms in "
+          f"{prof['device_kernels']} device ops (composite_fwd {prof['composite_fwd_ms']:.3f} ms, "
+          f"composite_bwd {prof['composite_bwd_ms']:.3f} ms), wall "
+          f"{prof['profiled_wall_ms']:.3f} ms, idle share {prof['idle_share']:.4f}")
+    for row in prof["top"][:8]:
+        print(f"    {row['ms']:9.4f} ms  x{row['calls']:<5d} {row['name']}")
+
+    # ---- a step's launches, recorded, replayed and held against plain
+    draws = systems.sample_dreamer_draws(gen, cfg, latent_size=g.latent_size)
+
+    def loss_and_backward(step_fn):
+        opt.zero_grad()
+        loss, m, _ = step_fn.loss_fn(dp, pw, draws, DREAMER_STEPS)
+        loss.backward()
+        return m
+
+    with timed("dreamer: main-path launches replayed"):
+        rec_fwd, rec_bwd = record_launches(lambda: loss_and_backward(loss_step))
+        check((len(rec_fwd), len(rec_bwd)) == (DREAMER_FWD_PER_STEP, DREAMER_BWD_PER_STEP),
+              f"dreamer: recorded {len(rec_fwd)} forward, {len(rec_bwd)} backward launches")
+        check({r[0].shape[-1] - 9 for r in rec_fwd} == {3, 4}
+              and {r[0].shape[-1] - 9 for r in rec_bwd} == {4},
+              "dreamer: the main passes composite other than C=4")
+        main_path = replay_launches("dreamer step", rec_fwd, rec_bwd)
+        vs_plain = hold_launches_against_plain("dreamer step", rec_fwd, rec_bwd)
+        del rec_fwd, rec_bwd
+
+    # ---- the kernel step against the plain one: f32 networks (the bf16
+    # weights widened), same state and draws
+    with timed("dreamer: kernel vs plain step"):
+        g32 = build_guidance("mvdream", StageConfig(),
+                             generator=torch.Generator(device=device).manual_seed(200),
+                             text_embeddings=g.guidance.text_embeddings, mock=True,
+                             image_size=256, n_view=cfg.n_views, dtype=torch.float32,
+                             device=device)
+        g32.unet.load_state_dict(g.unet.state_dict())
+        g32.vae.load_state_dict(g.vae.state_dict())
+        kern, _ = systems.make_gaussiandreamer_step(model, cfg, opt, g32)
+        plain_cfg = dataclasses.replace(cfg, raster=dataclasses.replace(cfg.raster,
+                                                                        composite="plain"))
+        plain, _ = systems.make_gaussiandreamer_step(model, plain_cfg, opt, g32)
+
+        def grads_of(step_fn):
+            counts = (bc.launches, bc.bwd_launches)
+            m = loss_and_backward(step_fn)
+            torch.cuda.synchronize()
+            grads = {k: p.grad.detach().clone() for k, p in dp.named_parameters()
+                     if p.grad is not None and not k.startswith("field.")}
+            return ({k: float(v.detach()) for k, v in m.items()}, grads,
+                    (bc.launches - counts[0], bc.bwd_launches - counts[1]))
+
+        mk, gk, launched_k = grads_of(kern)
+        mp, gp, launched_p = grads_of(plain)
+        opt.zero_grad()
+        del g32, kern, plain
+    check(launched_k == (DREAMER_FWD_PER_STEP, DREAMER_BWD_PER_STEP) and launched_p == (0, 0),
+          f"dreamer kernel vs plain: launches {launched_k} and {launched_p}")
+    check(set(gk) == set(gp), f"dreamer kernel vs plain: grads of {sorted(gk)} vs {sorted(gp)}")
+    loss_rel = {k: abs(mk[k] - mp[k]) / max(abs(mp[k]), 1e-12) for k in mp}
+    grad_rel = {k: float((gk[k] - gp[k]).norm() / gp[k].norm().clamp_min(1e-30)) for k in gp}
+    opac_max = float(gk["opacity"].abs().max())
+    print("[dreamer] kernel vs plain step (f32 networks, same state and draws): loss rel diff "
+          + json.dumps({k: float(f"{v:.3g}") for k, v in loss_rel.items()})
+          + "; gradient rel L2 diff " + json.dumps({k: float(f"{v:.3g}")
+                                                    for k, v in grad_rel.items()})
+          + f"; max |dL/d opacity logit| {opac_max:.4g}")
+    for k, v in loss_rel.items():
+        check(v <= DREAMER_LOSS_RTOL, f"dreamer kernel vs plain: {k} differs by {v:.3g}")
+    for k, v in grad_rel.items():
+        check(v <= STEP_GRAD_TOL, f"dreamer kernel vs plain: grad of {k} differs by {v:.3g}")
+    check(opac_max > 0.0, "dreamer: no render gradient on the opacity logits")
+    del g, dp, opt, loss_step, maintain
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "step_ms": step_ms, "launches_fwd": fwd, "launches_bwd": bwd,
+            "alive": alive_counts, "capacity": cap, "threshold": threshold,
+            "densify_eligible": eligible, "losses": metrics, "peak_memory_gib": peak_gib,
+            "profile": prof, "aten_ops": n_ops, "host_syncs": n_syncs,
+            "main_path": main_path, "vs_plain": vs_plain,
+            "kernel_vs_plain": {"loss_rel": loss_rel, "grad_rel_l2": grad_rel},
+            "max_abs_opacity_grad": opac_max, "unet_params": n_unet}
 
 
 def ptxas_summary(log):
@@ -2448,6 +3004,9 @@ def main():
             check(all(v["spill_stores"] == v["spill_loads"] == 0
                       for v in ptxas[name].values()), f"{name}: ptxas reports spills")
 
+    with timed("yaml config"):
+        yaml_cfg = run_yaml_config()
+
     with timed("kernel checks"):
         comp = [check_composite_kernel(7, seed=0), check_composite_kernel(3, seed=1)]
         comp_bwd = [check_composite_bwd_kernel(1024, 7, seed=2),
@@ -2502,8 +3061,12 @@ def main():
     with timed("cli and export"):
         cli = run_cli("cuda", lpips_path)
     torch.cuda.empty_cache()
-    real = run_real_capture("cuda", lpips_path)
+    real = run_real_capture("cuda", lpips_path, tmp.name)
+    torch.cuda.empty_cache()
+    ref_import = run_reference_import("cuda", tmp.name)
     tmp.cleanup()
+    torch.cuda.empty_cache()
+    dreamer = run_dreamer(params, model, "cuda")
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     block_keys = keys + ("device_ms",)
@@ -2518,6 +3081,9 @@ def main():
         "launches_turntable": sl["launches"],
         "launches_guided_train": guided["launches_fwd"],
         "launches_real_capture_cli": real["launches_fwd"],
+        "launches_reference_import_cli": ref_import["launches_fwd"],
+        "launches_reference_import_render_rot": ref_import["render_rot_launches"],
+        "launches_dreamer": dreamer["launches_fwd"],
         "max_abs_err": max(c["max_abs_err"] for c in comp),
         "ms": comp[0]["ms"],
         "plain_ms": comp[0]["plain_ms"],
@@ -2526,10 +3092,14 @@ def main():
         "library_ms": None,
         "device_ms": comp[0]["device_ms"],
         "occ_C3": {k: comp[1][k] for k in block_keys},
+        "dreamer_step_vs_plain": {k: dreamer["vs_plain"][k]
+                                  for k in ("fwd_max_abs_err", "fwd_share", "channels")},
         **main_path_keys("composite_fwd", {"train_step": tr["main_path"],
-                                           "bench_view": sl["main_path"]},
+                                           "bench_view": sl["main_path"],
+                                           "dreamer_step": dreamer["main_path"]},
                          {"train_step": tr["launches_fwd"] // TRAIN_STEPS,
-                          "bench_view": sl["launches"] // NUM_VIEWS}),
+                          "bench_view": sl["launches"] // NUM_VIEWS,
+                          "dreamer_step": dreamer["launches_fwd"] // DREAMER_STEPS}),
     }
     bwd = {
         "name": "composite_bwd",
@@ -2539,6 +3109,8 @@ def main():
         "launches": tr["launches_bwd"],
         "launches_guided_train": guided["launches_bwd"],
         "launches_real_capture_cli": real["launches_bwd"],
+        "launches_reference_import_cli": ref_import["launches_bwd"],
+        "launches_dreamer": dreamer["launches_bwd"],
         "max_abs_err": max(c["max_abs_err"] for c in comp_bwd),
         "ms": comp_bwd[0]["ms"],
         "plain_ms": comp_bwd[0]["plain_ms"],
@@ -2548,8 +3120,12 @@ def main():
         "device_ms": comp_bwd[0]["device_ms"],
         "occ_C3": {k: comp_bwd[1][k] for k in block_keys},
         "gen_NT256": {k: comp_bwd[2][k] for k in block_keys},
-        **main_path_keys("composite_bwd", {"train_step": tr["main_path"]},
-                         {"train_step": tr["launches_bwd"] // TRAIN_STEPS}),
+        "dreamer_step_vs_plain": {k: dreamer["vs_plain"][k]
+                                  for k in ("bwd_max_abs_err", "bwd_share", "bwd_col_rel")},
+        **main_path_keys("composite_bwd", {"train_step": tr["main_path"],
+                                           "dreamer_step": dreamer["main_path"]},
+                         {"train_step": tr["launches_bwd"] // TRAIN_STEPS,
+                          "dreamer_step": dreamer["launches_bwd"] // DREAMER_STEPS}),
     }
     tiles = {
         "name": "composite_tiles",
@@ -2574,10 +3150,14 @@ def main():
         entry.update(max_err=entry["max_abs_err"], kernel_ms=entry["ms"])
     WALL_S["total after imports"] = time.perf_counter() - T_START
     print("[time] wall s per phase: " + ", ".join(f"{k} {v:.2f}" for k, v in WALL_S.items()))
+    new_s = sum(v for k, v in WALL_S.items()
+                if k.startswith(("yaml config", "reference import", "dreamer")))
+    print(f"[time] the [yaml config], [reference import] and [dreamer] phases: {new_s:.2f} s")
     report = {"card": info, "ptxas": ptxas, "kernels": comp, "kernels_bwd": comp_bwd,
               "kernels_tiles": comp_tiles, "slice": sl, "tile_lists": tl, "oracle_probe": probe,
               "export_full": export_full, "training": tr, "image_prompt": image_prompt,
               "guided_training": guided, "cli": cli, "real_capture": real,
+              "yaml_config": yaml_cfg, "reference_import": ref_import, "dreamer": dreamer,
               "wall_s": WALL_S}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

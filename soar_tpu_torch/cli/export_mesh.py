@@ -49,7 +49,9 @@ def main(argv=None):
     if not args.synthetic and not (args.dataroot and args.smpl_model):
         ap.error("--dataroot and --smpl-model required (or --synthetic)")
     if args.ckpt and args.ckpt.endswith(".ckpt"):
-        ap.error("importing a reference .ckpt is not ported yet")
+        ap.error("--ckpt takes a checkpoint directory of soar_tpu_torch; a reference .ckpt "
+                 "is not read here, as soar_tpu's export does not read one (render it with "
+                 "cli.render_rot --ckpt, or warm-start cli.train --import-ckpt)")
 
     import torch
 

@@ -10,6 +10,7 @@ camera and writes pngs.
         [--num-subdiv 2] --ckpt outputs/run/stage1 --out outputs/run/rot
     python -m soar_tpu_torch.cli.render_rot --synthetic --num-views 4
     python -m soar_tpu_torch.cli.render_rot --synthetic --ckpt outputs/run/stage1
+    python -m soar_tpu_torch.cli.render_rot --dataroot D --smpl-model M --ckpt reference.ckpt
 
 ``--dataroot`` rebuilds the capture's avatar as ``cli.train --dataroot``
 does (``cli.common.real_setup``, undistilled; ``--num-subdiv`` must be the
@@ -19,8 +20,11 @@ fixture's own avatar, with ``--ckpt`` the synthetic avatar the trainer
 starts from.  A checkpoint directory written by ``cli.train`` is loaded
 into the rebuilt avatar and rendered through the field, as the JAX
 package's CLI does for its own checkpoints; without ``--ckpt`` a capture's
-avatar renders its explicit attributes.  Reference ``.ckpt`` files arrive
-with a later slice.
+avatar renders its explicit attributes.  A reference Lightning ``.ckpt``
+gives the explicit surfel tensors by name and, unless ``--use-explicit``,
+its attribute field, evaluated once at the canonical points (they do not
+move at inference) for every view; a checkpoint without a field renders
+the explicit attributes, with a warning.
 """
 
 from __future__ import annotations
@@ -118,13 +122,11 @@ def main(argv=None):
                          "fixture always renders explicit, as in soar_tpu)")
     ap.add_argument("--ckpt", type=str, default=None,
                     help="checkpoint directory written by soar_tpu_torch.cli.train "
-                         "(e.g. <out>/stage1)")
+                         "(e.g. <out>/stage1), or a reference Lightning .ckpt")
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
     if not args.synthetic and not (args.dataroot and args.smpl_model):
         ap.error("--dataroot and --smpl-model required (or --synthetic)")
-    if args.ckpt and args.ckpt.endswith(".ckpt"):
-        ap.error("importing a reference .ckpt is not ported yet")
 
     if args.synthetic and not args.ckpt:
         from ..data.dataset import make_synthetic_sequence
@@ -147,11 +149,40 @@ def main(argv=None):
         ds, params, model = real_setup(args.dataroot, args.smpl_model,
                                        num_subdiv=args.num_subdiv, distill_steps=0,
                                        device=args.device)
-    if args.ckpt:
+    attrs = None
+    force_explicit = False
+    if args.ckpt and args.ckpt.endswith(".ckpt"):
+        import torch
+
+        from ..field.reference_import import reference_field_apply
+        from ..io.checkpoint import (
+            apply_reference_tensors,
+            import_reference_ckpt,
+            import_reference_field_from_ckpt,
+            load_reference_state_dict,
+        )
+
+        ref_sd = load_reference_state_dict(args.ckpt)
+        apply_reference_tensors(params, import_reference_ckpt(args.ckpt, like=params,
+                                                              state_dict=ref_sd))
+        if not args.use_explicit:
+            rf = import_reference_field_from_ckpt(args.ckpt, state_dict=ref_sd,
+                                                  device=args.device)
+            if rf is not None:
+                with torch.no_grad():
+                    attrs = reference_field_apply(rf, params.xyz)
+                print(f"imported reference attribute field ({'tcnn' if rf.tcnn else 'torch'} "
+                      "layout)")
+            else:
+                print("[warn] reference ckpt has no attribute field; rendering with explicit "
+                      "params")
+                force_explicit = True
+    elif args.ckpt:
         params, step = load_avatar(args.ckpt, params)
         print(f"loaded {args.ckpt} (step {step})")
-    run_turntable(args.out, ds, params, model, args.use_explicit or args.ckpt is None,
-                  args.num_views, device=args.device)
+    run_turntable(args.out, ds, params, model,
+                  args.use_explicit or force_explicit or args.ckpt is None,
+                  args.num_views, attrs=attrs, device=args.device)
 
 
 if __name__ == "__main__":

@@ -5,6 +5,8 @@
     python -m soar_tpu_torch.cli.train --synthetic --steps 3 [--device cpu]
     python -m soar_tpu_torch.cli.train --dataroot D --smpl-model test:10,7,28 --num-subdiv 3 \
         --guidance imagedream --mock-guidance [--lpips-weights lpips_vgg16.pkl] [--eval]
+    python -m soar_tpu_torch.cli.train --config configs/surfel_stage0.yaml --dataroot D \
+        --smpl-model M [--import-ckpt reference.ckpt] [--trace-steps 2] [--wandb]
 
 Stage 0 supervises geometry (normals), stage 1 texture (RGB); stage 1
 starts from the stage-0 parameters with a fresh optimizer, and each stage
@@ -25,9 +27,18 @@ ImageDream's ip tokens are computed once per frame before training (stage 1
 from ``images_crop``, stage 0 from ``normal_F``) and the CLIP tower is then
 freed.  ``--lpips-weights`` (the JAX CLI's LPIPS-VGG16 pickle) adds the
 normal-LPIPS terms, the VGG RGB term with ``--lambda-vgg``, and LPIPS to
-``--eval``.  The flags and defaults are the JAX CLI's; those of parts not
-ported yet (YAML configs, reference checkpoints, multi-device, traces,
-wandb) stop with an error instead of being ignored.
+``--eval``.  ``--config`` reads a YAML config (this repo's
+``configs/*.yaml`` or the reference's; :mod:`soar_tpu_torch.train.
+yaml_config`): its stage, step count, loss weights, learning rates, camera
+ranges, guidance kind, data root and prompt fill whatever the flags leave
+unset, and an explicitly passed flag wins.  ``--import-ckpt`` warm-starts
+from a reference Lightning ``.ckpt``: its explicit surfel tensors by name
+and, in a field-driven run, its attribute field distilled into the hash
+field.  ``--trace-steps N`` writes a ``torch.profiler`` Chrome trace of
+stage 0's first N steps under ``<out>/trace``; ``--wandb`` also logs to
+wandb when it is installed.  The flags and defaults are the JAX CLI's;
+``--multichip`` (multi-device training, not ported yet) stops with an
+error instead of being ignored.
 """
 
 from __future__ import annotations
@@ -38,27 +49,44 @@ import os
 import time
 
 # flag -> what it waits for; each is refused when given.
-NOT_PORTED = {
-    "config": "YAML configs",
-    "import_ckpt": "reference .ckpt import",
-    "multichip": "multi-device training",
-    "trace_steps": "profiler traces",
-    "wandb": "wandb logging",
-}
+NOT_PORTED = {"multichip": "multi-device training"}
 
 
-def resolve_stage_cfg(st: int, steps_arg):
-    """``--steps`` if given, else the 1000-step default."""
+def resolve_stage_cfg(yaml_cfg, st: int, steps_arg):
+    """Stage config precedence: an explicitly passed ``--steps`` wins, else
+    the YAML's ``trainer.max_steps`` stands (the C() anneals and the SDS
+    warm-up key off max_steps), else the 1000-step default."""
+    import dataclasses as dc
+
     from ..train.config import StageConfig, stage1_config
 
+    if yaml_cfg is not None and yaml_cfg["stage"].training_stage == st:
+        stage_cfg = yaml_cfg["stage"]
+        if steps_arg is not None:
+            stage_cfg = dc.replace(stage_cfg, max_steps=steps_arg)
+        return stage_cfg
     n = 1000 if steps_arg is None else steps_arg
     return StageConfig(max_steps=n) if st == 0 else stage1_config(n)
 
 
-def resolve_guidance_kind(kind, *, ckpt, embeddings, clip_dir, mock: bool) -> str:
-    """Gate guidance on its user-supplied weights: an explicit
-    ``--guidance`` without them is an error.  (The JAX CLI's YAML-requested
-    guidance, which degrades to none instead, waits for ``--config``.)"""
+def resolve_cli_stage(arg_stage, yaml_cfg) -> str:
+    """The stage(s) to run: an explicit ``--stage`` (``both`` included)
+    always wins; else a ``--config`` YAML's single stage; else both."""
+    if arg_stage is not None:
+        return arg_stage
+    if yaml_cfg is not None:
+        ys = yaml_cfg["stage"]
+        print(f"--config defines stage {ys.training_stage}; running only "
+              "that stage (pass --stage 0|1|both to override)")
+        return str(ys.training_stage)
+    return "both"
+
+
+def resolve_guidance_kind(kind: str, from_yaml: bool, *, ckpt, embeddings, clip_dir,
+                          mock: bool) -> str:
+    """Gate guidance on its user-supplied weights.  A YAML-requested
+    guidance degrades (loudly) to reconstruction-only when the weights are
+    absent; an explicitly passed ``--guidance`` is an error instead."""
     if kind in (None, "none"):
         return "none"
     missing = []
@@ -66,30 +94,83 @@ def resolve_guidance_kind(kind, *, ckpt, embeddings, clip_dir, mock: bool) -> st
         missing.append("--guidance-ckpt (or --mock-guidance)")
     if not (embeddings or clip_dir or mock):
         missing.append("--prompt-embeddings / --clip-model-dir (or --mock-guidance)")
-    if missing:
-        raise SystemExit(f"guidance '{kind}' needs user-supplied weights: "
-                         f"missing {'; '.join(missing)}")
-    return kind
+    if not missing:
+        return kind
+    msg = f"guidance '{kind}' needs user-supplied weights: missing {'; '.join(missing)}"
+    if from_yaml:
+        print(f"warning: {msg} — training WITHOUT SDS guidance (pass the weights, "
+              "--mock-guidance, or an explicit --guidance to silence)")
+        return "none"
+    raise SystemExit(msg)
+
+
+def import_reference_warm_start(path, params, use_explicit: bool, device):
+    """``--import-ckpt``: the reference ``.ckpt``'s explicit surfel tensors
+    copied into ``params`` by name; in a field-driven run its attribute
+    field's predictions at the canonical points are distilled into the hash
+    field (``reset_field``, 1000 steps, minibatch 65,536 above 100k points),
+    so the warm start covers the rendered colours, scales and quats too.
+    Unlike ``--resume`` it restores no step counter.  Returns the imported
+    field names."""
+    import torch
+
+    from ..field.attribute_field import reset_field
+    from ..field.reference_import import reference_field_apply
+    from ..io.checkpoint import (
+        apply_reference_tensors,
+        import_reference_ckpt,
+        import_reference_field_from_ckpt,
+        load_reference_state_dict,
+    )
+
+    ref_sd = load_reference_state_dict(path)
+    mapped = import_reference_ckpt(path, like=params, state_dict=ref_sd)
+    apply_reference_tensors(params, mapped)
+    rf = import_reference_field_from_ckpt(path, state_dict=ref_sd, device=device)
+    if rf is not None and not use_explicit:
+        t_f = time.time()
+        with torch.no_grad():
+            ref_attrs = reference_field_apply(rf, params.xyz)
+        n = int(params.xyz.shape[0])
+        reset_field(params.field, params.xyz, ref_attrs["shs"], ref_attrs["scales"],
+                    ref_attrs["quats"], steps=1000,
+                    batch_size=65536 if n > 100_000 else None,
+                    generator=torch.Generator(device=params.xyz.device).manual_seed(0))
+        print(f"distilled reference attribute field into the hash field "
+              f"({time.time() - t_f:.1f}s)")
+    elif rf is not None:
+        print("warning: --use-explicit ignores the checkpoint's attribute-field weights "
+              "(colors/scales/quats come from the explicit tensors)")
+    print(f"imported reference ckpt {path} ({sorted(mapped)})")
+    return sorted(mapped)
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--config", type=str, default=None)
+    ap.add_argument("--config", type=str, default=None,
+                    help="YAML config (configs/*.yaml or a reference threestudio-soar YAML); "
+                    "flags passed explicitly still win")
     ap.add_argument("--dataroot", type=str, default=None)
     ap.add_argument("--smpl-model", type=str, default=None,
                     help="SMPL-X .npz, SMPL .pkl, or test:J,S,R (the procedural body)")
     ap.add_argument("--out", type=str, default="outputs/run")
-    ap.add_argument("--stage", type=str, default="both", choices=["0", "1", "both"])
+    ap.add_argument("--stage", type=str, default=None, choices=["0", "1", "both"],
+                    help="default: the --config YAML's stage if given, else both")
     ap.add_argument("--steps", type=int, default=None,
-                    help="steps per stage (default 1000)")
+                    help="steps per stage (default: the YAML's trainer.max_steps with "
+                    "--config, else 1000)")
     ap.add_argument("--num-subdiv", type=int, default=2)
     ap.add_argument("--n-views", type=int, default=None,
-                    help="gen views per step (default 4)")
+                    help="gen views per step (default: the YAML's data.n_view with "
+                    "--config, else 4)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--synthetic", action="store_true")
     ap.add_argument("--use-explicit", action="store_true")
     ap.add_argument("--resume", type=str, default=None)
-    ap.add_argument("--import-ckpt", type=str, default=None)
+    ap.add_argument("--import-ckpt", type=str, default=None,
+                    help="warm-start from a reference Lightning .ckpt: explicit surfel "
+                    "tensors by name; in a field-driven run (no --use-explicit) its "
+                    "attribute field is distilled into the hash field")
     ap.add_argument("--eval", action="store_true", help="run the test split at the end")
     ap.add_argument("--log-every", type=int, default=50)
     ap.add_argument("--dump-every", type=int, default=250)
@@ -97,7 +178,8 @@ def main(argv=None):
                     help="mid-stage checkpoint every N steps to <out>/stage<K> "
                          "(0 = stage end only); restart with --resume <out>/stage<K>")
     ap.add_argument("--val-every", type=int, default=250)
-    ap.add_argument("--wandb", action="store_true")
+    ap.add_argument("--wandb", action="store_true",
+                    help="also log the metrics to wandb when it is installed")
     ap.add_argument("--lpips-weights", type=str, default=None,
                     help="LPIPS-VGG16 pickle (flax variables with numpy leaves, "
                     "docs/REAL_WEIGHTS.md section 1): the normal-LPIPS terms and the "
@@ -105,7 +187,9 @@ def main(argv=None):
     ap.add_argument("--lambda-vgg", type=float, default=0.0,
                     help="weight of the VGG/LPIPS RGB loss (the reference's _fs "
                     "configs use 0.1); needs --lpips-weights")
-    ap.add_argument("--trace-steps", type=int, default=0)
+    ap.add_argument("--trace-steps", type=int, default=0,
+                    help="write a torch.profiler Chrome trace of stage 0's first N steps "
+                    "under <out>/trace")
     ap.add_argument("--guidance", type=str, default=None,
                     choices=["none", "imagedream", "mvdream"],
                     help="multi-view SDS guidance; imagedream also conditions on the "
@@ -150,9 +234,27 @@ def main(argv=None):
         if getattr(args, flag):
             ap.error(f"--{flag.replace('_', '-')} is not ported yet ({what} arrives "
                      "with a later slice of the port)")
+    guidance_from_yaml = False
+    yaml_cfg = None
+    if args.config:
+        from ..train.yaml_config import load_yaml_config
+
+        yaml_cfg = load_yaml_config(args.config)
+        # The YAML fills in whatever the flags left unset.
+        if args.dataroot is None and yaml_cfg["dataroot"] not in (None, "???"):
+            args.dataroot = str(yaml_cfg["dataroot"])
+        if args.prompt is None and yaml_cfg["prompt"] not in (None, "???"):
+            args.prompt = str(yaml_cfg["prompt"])
+        if args.guidance is None and yaml_cfg["guidance_kind"]:
+            args.guidance = yaml_cfg["guidance_kind"]
+            guidance_from_yaml = True
+        if args.guidance_ckpt is None and yaml_cfg["guidance_ckpt"]:
+            args.guidance_ckpt = str(yaml_cfg["guidance_ckpt"])
+    args.stage = resolve_cli_stage(args.stage, yaml_cfg)
     args.guidance = resolve_guidance_kind(
-        args.guidance, ckpt=args.guidance_ckpt, embeddings=args.prompt_embeddings,
-        clip_dir=args.clip_model_dir, mock=args.mock_guidance)
+        args.guidance, guidance_from_yaml, ckpt=args.guidance_ckpt,
+        embeddings=args.prompt_embeddings, clip_dir=args.clip_model_dir,
+        mock=args.mock_guidance)
     if not args.synthetic and not (args.dataroot and args.smpl_model):
         raise SystemExit("--dataroot and --smpl-model required (or --synthetic)")
 
@@ -169,7 +271,7 @@ def main(argv=None):
     from ..train.config import TrainConfig
     from ..train.evaluate import evaluate
     from ..train.lpips import load_lpips, make_lpips_fn
-    from ..train.observe import MetricLogger, StepTimer, dump_debug_images
+    from ..train.observe import MetricLogger, StepTimer, dump_debug_images, profile_trace
     from ..train.trainer import (
         gt_stack_nbytes,
         init_train_state,
@@ -182,7 +284,12 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     os.makedirs(args.out, exist_ok=True)
-    cfg = TrainConfig(n_views=args.n_views if args.n_views else 4)
+    if yaml_cfg is not None:
+        cfg = yaml_cfg["train"]
+        if args.n_views is not None:
+            cfg = dc.replace(cfg, n_views=args.n_views)
+    else:
+        cfg = TrainConfig(n_views=args.n_views if args.n_views else 4)
     if args.synthetic:
         ds, params, model = synthetic_setup(distill_steps=100, seed=args.seed, device=dev)
         gen_size = normal_size = (128, 128)
@@ -198,6 +305,8 @@ def main(argv=None):
         print(f"capture {args.dataroot}: {ds.num_frames} frames at {ds.image_size}, "
               f"{params.xyz.shape[0]} surfels, set up in {time.time() - t_setup:.1f}s")
 
+    if args.import_ckpt:
+        import_reference_warm_start(args.import_ckpt, params, args.use_explicit, dev)
     resume_step = 0
     if args.resume:
         params, resume_step = load_avatar(args.resume, params)
@@ -217,7 +326,7 @@ def main(argv=None):
               "LPIPS terms disabled")
 
     def _resolve_stage(st):
-        stage_cfg = resolve_stage_cfg(st, args.steps)
+        stage_cfg = resolve_stage_cfg(yaml_cfg, st, args.steps)
         if not has_normals:
             stage_cfg = dc.replace(stage_cfg, loss=dc.replace(
                 stage_cfg.loss, normal_F=0.0, normal_B=0.0, normal_mask=0.0))
@@ -285,7 +394,7 @@ def main(argv=None):
             has_normals=has_normals, has_normal_B=has_normal_B, guidance_fn=guidance_fn,
             lpips_fn=lpips_fn, split_sds=split_sds,
         )
-        logger = MetricLogger(args.out)
+        logger = MetricLogger(args.out, use_wandb=args.wandb)
         timer = StepTimer()
         generator = torch.Generator(device=dev).manual_seed(args.seed + st)
         rng = np.random.RandomState(args.seed + st)
@@ -321,6 +430,10 @@ def main(argv=None):
         if start_it > 0:
             state.step = start_it
             print(f"stage {st}: continuing from step {start_it}/{n_steps}")
+        trace_ctx = (profile_trace(os.path.join(args.out, "trace"))
+                     if args.trace_steps > 0 and st == 0 else None)
+        if trace_ctx:
+            trace_ctx.__enter__()
         t0 = time.time()
         for it in range(start_it, n_steps):
             frame = ds.train_idx[rng.randint(len(ds.train_idx))]
@@ -348,6 +461,9 @@ def main(argv=None):
                         lat, c2w, state.step, sds_draws, ref_rgb=batch.get(ref),
                         ref_ip=batch.get("ref_ip")))
                 state, metrics = step_fn(state, batch, draws)
+            if trace_ctx and it + 1 == args.trace_steps:
+                trace_ctx.__exit__(None, None, None)
+                trace_ctx = None
             if it % args.log_every == 0 or it == n_steps - 1:
                 m = {k: round(float(v), 5) for k, v in metrics.items()}
                 m["stage"] = st
@@ -373,6 +489,8 @@ def main(argv=None):
                                        torch.ones(3, device=dev), vidx, dump_settings)
                 dump_debug_images(os.path.join(args.out, "val"), it, vout,
                                   gt={"rgb": ds.images[vidx]})
+        if trace_ctx:
+            trace_ctx.__exit__(None, None, None)
         logger.close()
         params = state.params
         ckpt = os.path.join(args.out, f"stage{st}")

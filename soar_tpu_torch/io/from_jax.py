@@ -16,7 +16,9 @@ numpy arrays (``np.asarray`` on every leaf); nothing here imports JAX.
 - ``model``: ``skin`` (``inv_mats``, ``cano_vertices``, ``point_weights``),
   ``smpl_params``, ``aabb``, ``original_pos``, ``num_frames``, ``body``
   and ``field_cfg`` (``dataclasses.asdict`` of the JAX config).
-- the training state's background MLP (``bg_params``).
+- the training state's background MLP (``bg_params``);
+- the densification state (:func:`densify_state_from_numpy`), whose
+  padded parameters come across as ``params`` do;
 - the guidance networks' flax variables (:func:`unet_from_flax`,
   :func:`vae_from_flax`, :func:`clip_vit_from_flax`,
   :func:`resampler_from_flax`) and text embeddings;
@@ -115,6 +117,19 @@ def avatar_from_numpy(
         field_cfg=cfg,
     )
     return av, am
+
+
+def densify_state_from_numpy(state: Dict, device="cuda"):
+    """The JAX package's ``DensifyState`` (``alive`` bool, the three
+    accumulators and ``denom``, as numpy) as the port's."""
+    from ..avatar.densify import DensifyState
+
+    dev = resolve_device(device)
+    return DensifyState(
+        alive=torch.as_tensor(np.array(state["alive"], bool)).to(dev),
+        **{k: _t(state[k], dev) for k in ("xyz_grad_accum", "scale_grad_accum", "opac_accum",
+                                          "denom")},
+    )
 
 
 def background_from_numpy(bg: Dict, device="cuda") -> Dict:

@@ -2,8 +2,10 @@
 ``soar_tpu.train.observe``).
 
 - :class:`StepTimer`: rolling per-phase wall-clock means;
+- :func:`profile_trace`: a ``torch.profiler`` context that writes a Chrome
+  trace (``chrome://tracing``, Perfetto) of what runs inside it;
 - :class:`MetricLogger`: one JSON line per logged step in
-  ``<out>/metrics.jsonl`` (wandb is not ported);
+  ``<out>/metrics.jsonl``, and wandb when asked for and installed;
 - :func:`dump_debug_images`: the render / mask / normal / pred_normal /
   occ / depth / curv pngs of one step.
 """
@@ -11,6 +13,8 @@
 from __future__ import annotations
 
 import contextlib
+import importlib
+import importlib.util
 import json
 import os
 import time
@@ -35,22 +39,53 @@ class StepTimer:
         return {k: float(np.mean(v)) for k, v in self.times.items() if len(v)}
 
 
+@contextlib.contextmanager
+def profile_trace(log_dir: str):
+    """Profile the host and, where CUDA is available, the device while the
+    context is open; on exit write the Chrome trace to
+    ``<log_dir>/trace_<pid>_<time>.json``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace_{os.getpid()}_{int(time.time())}.json"))
+
+
 class MetricLogger:
     """Appends ``{"step": ..., <metric>: float, ...}`` rows to
-    ``<out_dir>/metrics.jsonl``."""
+    ``<out_dir>/metrics.jsonl``; with ``use_wandb`` also logs them to wandb
+    when the package is installed (the port does not depend on it, so it is
+    loaded here by name), else says so and keeps to the JSONL."""
 
-    def __init__(self, out_dir: str):
+    def __init__(self, out_dir: str, use_wandb: bool = False, project: str = "soar_tpu"):
         os.makedirs(out_dir, exist_ok=True)
         self.f = open(os.path.join(out_dir, "metrics.jsonl"), "a")
+        self.wandb = None
+        if use_wandb:
+            if importlib.util.find_spec("wandb") is None:
+                print("[observe] wandb requested but not installed; JSONL only")
+            else:
+                self.wandb = importlib.import_module("wandb")
+                self.wandb.init(project=project, dir=out_dir)
 
     def log(self, step: int, metrics: Dict):
         row = {"step": int(step)}
         row.update({k: float(v) for k, v in metrics.items()})
         self.f.write(json.dumps(row) + "\n")
         self.f.flush()
+        if self.wandb is not None:
+            self.wandb.log(row, step=int(step))
 
     def close(self):
         self.f.close()
+        if self.wandb is not None:
+            self.wandb.finish()
 
 
 def _np(x) -> np.ndarray:

@@ -57,7 +57,7 @@ def test_kernel_library_named_by_source_hash(monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("saturate", [False, True])
-@pytest.mark.parametrize("C", [7, 3])
+@pytest.mark.parametrize("C", [7, 4, 3])
 def test_composite_kernel_matches_plain_on_cuda(saturate, C):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -85,11 +85,21 @@ def test_composite_kernel_matches_plain_on_cuda(saturate, C):
     want_xy = tcomp.composite_block_bwd_plain(*cuda, *ones)[..., 0:2]
     scale = float(want_xy.abs().max())
     assert_close_share(xy.grad, want_xy, 1e-4 * scale, 0.01, msg="d/dxy")
+    # Non-constant opacities (0.2-0.9, or 0.9-1.0 saturating), as the
+    # GaussianDreamer step composites them at C = 4: their gradient is the
+    # plain backward's too.
+    opac = cuda[2].clone().requires_grad_()
+    accum, corr, T = tbc.composite_block(cuda[0], cuda[1], opac, *cuda[3:])
+    (accum.sum() + corr.sum() + T.sum()).backward()
+    want_o = tcomp.composite_block_bwd_plain(*cuda, *ones)[..., 5]
+    scale = float(want_o.abs().max())
+    assert scale > 0
+    assert_close_share(opac.grad, want_o, 1e-4 * scale, 0.01, msg="d/dopacity")
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("saturate", [False, True])
-@pytest.mark.parametrize("C", [7, 3])
+@pytest.mark.parametrize("C", [7, 4, 3])
 def test_composite_bwd_kernel_matches_plain_on_cuda(saturate, C):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
@@ -102,6 +112,8 @@ def test_composite_bwd_kernel_matches_plain_on_cuda(saturate, C):
     assert tbc.composite_block.bwd_launches == before + 1
     want = tcomp.composite_block_bwd_plain(*scene, *cots)
     assert bool((got[..., 6] == 0).all())
+    # The opacity column (5) carries the random cotangents' gradient.
+    assert float(want[..., 5].abs().max()) > 0
     # Per column, relative to the column's largest magnitude: the kernel's
     # S_k = G - P_k cancels to ~1 ulp of G over 1 - alpha >= 0.01.  At most
     # 0.1% of the entries beyond 1e-4 (a pixel whose stop slot flips moves
