@@ -124,7 +124,18 @@
    against their plain versions; the kernel step against the plain one
    (f32 networks; loss 1e-3, gradients 2e-3); a gradient on the opacity
    logits; dead slots never counted visible; everything finite.
-15. Prints the wall seconds of each phase (``[time]``), a
+15. Preprocessing (``[preprocess]``, :func:`run_preprocess`): a mock
+   SMPL-X body (``make_test_body(55, 4, 48)`` widened and dressed with
+   landmark tables, 10,608 vertices) written as an ``.npz``; a 20-frame
+   512x512 capture of it rendered from its mesh; OpenPose and SMPLer-X
+   outputs made from its parameters; ``compute_kp_and_mask --mask-backend
+   sam`` with a mock full ViT-H checkpoint; ``preprocess_custom`` with a
+   mock full-shape ECON checkpoint (SMPLify and NormalNet normal maps,
+   gated on the reprojection error, the pose, the PNGs, CPU ops and
+   ``render_mesh`` card = CPU); the template fallback's IoU (>= 0.7);
+   ``cli.train --dataroot`` on the result, 2 steps a stage, counted
+   (13 + 8 launches a step).
+16. Prints the wall seconds of each phase (``[time]``), a
    ``{"kernels": [...]}`` line (the block composites with the summed
    device ms and bound of their recorded main-path launches,
    ``main_path_ms`` and ``main_path_bound_ms``, and their launches per step
@@ -146,6 +157,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -2935,6 +2947,381 @@ def run_dreamer(params, model, device):
             "max_abs_opacity_grad": opac_max, "unet_params": n_unet}
 
 
+# ------------------------------------------------------------ preprocessing
+
+PREP_FRAMES, PREP_SIZE, PREP_BODY_DIMS = 20, 512, (55, 4, 48)
+PREP_GT_K = 1024  # the capture's mesh GT renders without truncation
+PREP_TRAIN_STEPS, PREP_SUBDIV = 2, 2  # the training run on the result (cli.train's default)
+TEMPLATE_IOU_MIN = 0.7
+RASTER_AGREE_MIN = 0.999  # render_mesh on the card against its CPU run
+
+
+def _patched(owner, name, make):
+    """``owner.name`` replaced by ``make(owner.name)`` inside a ``with``."""
+    return mock.patch.object(owner, name, make(getattr(owner, name)))
+
+
+def _synced_ms(fn, record, key):
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        record.setdefault(key, []).append(1e3 * (time.perf_counter() - t0))
+        return out
+    return call
+
+
+def run_preprocess(device, d):
+    """The preprocessing path (``soar_tpu_torch.preproc``) at full width in the
+    directory ``d``: (1) the mock SMPL-X body (``make_test_body(55, 4, 48)``
+    dressed with landmark tables, 10,608 vertices) written as an ``.npz`` and
+    read back equal; (2) a 20-frame 512x512 capture of it from its mesh
+    (``data.mock_capture`` with ``mesh=True``, K = 1024, exact); (3) the
+    external tools' outputs made from the capture's own parameters
+    (OpenPose JSON, SMPLer-X results perturbed 0.1 rad, meta JSON), the
+    capture's params, masks and normal maps moved aside; (4)
+    ``compute_kp_and_mask --mask-backend sam`` with a mock full ViT-H
+    checkpoint (keys held to the manifest, written in bf16, read in f32)
+    over the 20 frames, then the capture's masks back; (5)
+    ``preprocess_custom`` with a mock full-shape ECON checkpoint: SMPLify
+    and the NormalNet normal maps, gated (keys, reprojection error under
+    half the initialisation's, the body pose nearer the truth, RGBA 512²
+    with the cropped mask in alpha, no CPU op in one ``render_mesh`` and
+    one NormalNet call, ``render_mesh`` card = CPU); (6) the template
+    fallback on a copy, its IoU against the capture's cropped mask; (7)
+    ``cli.train --dataroot`` on the result, 2 steps a stage, counted."""
+    import shutil
+
+    from soar_tpu_torch.body.model import load_smplx_npz, save_smplx_npz, smplx_forward_full
+    from soar_tpu_torch.data import mock_capture
+    from soar_tpu_torch.data.dataset import _load_params_pth, _mask_channel
+    from soar_tpu_torch.guidance.manifest import sam_vit_h_key_manifest
+    from soar_tpu_torch.io.png import read_png
+    from soar_tpu_torch.preproc import (compute_kp_and_mask, compute_normal, compute_smplx,
+                                        normal_net, preprocess_custom, smplify)
+    from soar_tpu_torch.preproc import sam as sam_mod
+    from soar_tpu_torch.preproc.keypoints import load_keypoints
+    from soar_tpu_torch.render import mesh_raster
+    from soar_tpu_torch.render.block_composite import composite_block as bc
+
+    rep = {}
+    root = os.path.join(d, "prep")
+    cap = os.path.join(root, "seq")
+    aside = os.path.join(d, "aside")
+    F, S = PREP_FRAMES, PREP_SIZE
+    # ---- (1) the body, (2) the capture, (3) the external tools' outputs
+    with timed("preprocess: body, capture, tool outputs"):
+        body = mock_capture.mock_smplx_body(*PREP_BODY_DIMS, device=device)
+        npz = os.path.join(d, "mock_smplx.npz")
+        save_smplx_npz(npz, body)
+        back = load_smplx_npz(npz, device=device)
+        same = all(torch.equal(getattr(body, k).to(getattr(back, k).dtype), getattr(back, k))
+                   if torch.is_tensor(getattr(body, k)) else getattr(body, k) == getattr(back, k)
+                   for k in body._fields)
+        check(same and body.num_verts == 10_608 and body.num_joints == 55,
+              f"preprocess: the npz body does not read back equal (V {body.num_verts})")
+        t0 = time.perf_counter()
+        info = mock_capture.make_capture(cap, F, S, subdiv=0, gt_k=PREP_GT_K, device=device,
+                                         body=body, mesh=True)
+        cap_s = time.perf_counter() - t0
+        check(min(info["coverage"]) > 0.05, f"preprocess: capture coverage {info['coverage']}")
+        truth_pth = _load_params_pth(os.path.join(cap, "smplx", "params.pth"))
+        Ks = truth_pth["Ks"]
+        truth = mock_capture.smplx_segments(truth_pth)
+        init = mock_capture.write_tool_outputs(cap, body, truth, Ks, seed=11)
+        os.makedirs(aside)
+        for sub in ("masks", "normal_F", "normal_B", os.path.join("smplx", "params.pth")):
+            shutil.move(os.path.join(cap, sub), os.path.join(aside, os.path.basename(sub)))
+    print(f"[preprocess] mock SMPL-X body: make_test_body{PREP_BODY_DIMS} dressed with "
+          f"landmark tables, {body.num_verts} vertices, {body.faces.shape[0]} faces, written "
+          f"as an npz and read back equal; capture {F} frames of {S}x{S} from its mesh "
+          f"(K={PREP_GT_K}, no truncation) in {cap_s:.3f} s, coverage "
+          f"{min(info['coverage']):.4f}-{max(info['coverage']):.4f}; OpenPose/SMPLer-X outputs "
+          f"from its parameters (body pose +{mock_capture.TOOL_POSE_NOISE} rad, transl "
+          f"+{mock_capture.TOOL_TRANSL_NOISE})")
+    rep.update(capture_s=cap_s, coverage=info["coverage"])
+
+    # ---- (4) SAM ViT-H masks
+    sam_rec = {}
+    with timed("preprocess: SAM"):
+        ckpt = os.path.join(d, "sam_vit_h_mock.pth")
+        torch.manual_seed(13)
+        with torch.device(device):
+            model = sam_mod.SAM()
+        sd = model.state_dict()
+        check({k: tuple(v.shape) for k, v in sd.items()} == sam_vit_h_key_manifest(),
+              "preprocess: the SAM state_dict's keys differ from sam_vit_h_key_manifest")
+        sam_params = sum(v.numel() for v in sd.values())
+        torch.save({k: v.to(torch.bfloat16).cpu() for k, v in sd.items()}, ckpt)
+        ckpt_mb = os.path.getsize(ckpt) / 2**20
+        del model, sd
+        torch.cuda.empty_cache()
+
+        def timed_call(call):
+            def wrapped(self, img, pts):
+                sam_rec["predictor"] = self
+                return _synced_ms(call, sam_rec, "ms")(self, img, pts)
+            return wrapped
+
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with _patched(sam_mod.SamPredictor, "__call__", timed_call):
+            compute_kp_and_mask.main(["--data-dir", cap, "--mask-backend", "sam",
+                                      "--sam-checkpoint-path", ckpt, "--device", device])
+        sam_s = time.perf_counter() - t0
+        sam_peak = torch.cuda.max_memory_allocated() / 2**30
+        pred = sam_rec.pop("predictor")
+        check(all(p.dtype == torch.float32 and p.device.type == "cuda"
+                  for p in pred.sam.parameters()), "preprocess: SAM not float32 on the card")
+        side = pred.sam.cfg.img_size
+        x = torch.randn(1, 3, side, side, device=device)
+        with torch.no_grad():
+            enc_ms = cuda_ms(lambda: pred.sam.image_encoder(x), iters=3, warmup=1)
+        del pred, x
+        os.remove(ckpt)
+        torch.cuda.empty_cache()
+        masks = [read_png(os.path.join(cap, "masks", f"{i:05d}.png")) for i in range(F)]
+        check(len(os.listdir(os.path.join(cap, "masks"))) == F
+              and all(m.shape == (S, S) and set(np.unique(m)) <= {0, 255} for m in masks),
+              "preprocess: SAM masks are not binary 512x512 PNGs, one a frame")
+        sam_cover = float(np.mean([(m > 0).mean() for m in masks]))
+        shutil.rmtree(os.path.join(cap, "masks"))
+        shutil.move(os.path.join(aside, "masks"), os.path.join(cap, "masks"))
+    ms = sam_rec["ms"]
+    print(f"[preprocess] compute_kp_and_mask --mask-backend sam: SAM ViT-H {sam_params} "
+          f"parameters (keys = sam_vit_h_key_manifest), mock checkpoint {ckpt_mb:.1f} MiB in "
+          f"bf16, read as float32; {F} frames in {sam_s:.3f} s (load included), ms/frame "
+          f"median {np.median(ms):.3f} (first {ms[0]:.3f}), image encoder {enc_ms:.3f} ms at "
+          f"1024x1024 (CUDA events); peak memory {sam_peak:.3f} GiB; masks binary {S}x{S} (mean "
+          f"cover {sam_cover:.4f}: mock weights, not gated); the capture's masks put back")
+    rep.update(sam_params=sam_params, sam_s=sam_s, sam_ms_per_frame=ms, sam_encoder_ms=enc_ms,
+               sam_peak_gib=sam_peak)
+
+    # ---- (5) SMPLify and the NormalNet normal maps through preprocess_custom
+    rec = {}
+    with timed("preprocess: preprocess_custom"):
+        econ = os.path.join(d, "econ_normal_mock.ckpt")
+        torch.manual_seed(17)
+        with torch.device(device):
+            net = normal_net.NormalNet()
+        nn_params = sum(p.numel() for p in net.parameters())
+        torch.save({"state_dict": {k: v.to(torch.bfloat16).cpu()
+                                   for k, v in net.state_dict().items()}}, econ)
+        del net
+        torch.cuda.empty_cache()
+
+        def fit(orig):
+            def wrapped(self, *a, **kw):
+                out = orig(self, *a, **kw)
+                rec["smplify"] = self.history
+                return out
+            return wrapped
+
+        def raster(orig):
+            def wrapped(*args, **kwargs):
+                rec.setdefault("raster_args", args)
+                out = _synced_ms(orig, rec, "raster_ms")(*args, **kwargs)
+                rec.setdefault("overflow", []).append(out["overflow"].tolist())
+                return out
+            return wrapped
+
+        def normal_model(orig):
+            def wrapped(*a):
+                net = orig(*a)
+                rec["net"] = net
+                fwd = net.forward
+
+                def forward(*x):
+                    rec.setdefault("net_args", x)
+                    return _synced_ms(fwd, rec, "net_ms")(*x)
+                net.forward = forward
+                return net
+            return wrapped
+
+        stage = {}
+        t0 = time.perf_counter()
+        with _patched(smplify.SMPLify, "fit", fit), \
+                _patched(compute_normal, "render_mesh", raster), \
+                _patched(compute_normal, "_normal_model", normal_model), \
+                _patched(compute_smplx, "main", lambda f: _wall(f, stage, "compute_smplx")), \
+                _patched(compute_normal, "main", lambda f: _wall(f, stage, "compute_normal")):
+            preprocess_custom.main(["--video-path", os.path.join(root, "seq.mp4"),
+                                    "--data-root", root, "--smpl-model", npz,
+                                    "--econ-ckpt", econ, "--device", device])
+        prep_s = time.perf_counter() - t0
+        os.remove(econ)
+
+        fitted = _load_params_pth(os.path.join(cap, "smplx", "params.pth"))
+        want_keys = set(compute_smplx.SMPLERX_KEYS) | {"Ks", "w2c", "img_wh", "normal_Ks"}
+        check(want_keys <= set(fitted) and fitted["body_pose"].shape == (F, 21, 3)
+              and fitted["normal_Ks"].shape == (F, 3, 3),
+              f"preprocess: params.pth keys {sorted(fitted)}")
+        kps = load_keypoints(os.path.join(cap, "keypoints"))
+        src, dst, _ = smplify.smplx_to_openpose137()
+        conf = kps[..., 2] > 0
+
+        def reproj(p):
+            p = {k: torch.as_tensor(np.asarray(p[k], np.float32)).reshape(F, -1).to(device)
+                 for k in compute_smplx.SMPLERX_KEYS}
+            with torch.no_grad():
+                _, j144 = smplx_forward_full(body, p)
+                k3 = smplify.convert_kps_137(j144, torch.as_tensor(src), torch.as_tensor(dst))
+            px = np.einsum("fij,fkj->fki", Ks, k3.cpu().numpy())
+            px = px[..., :2] / np.maximum(px[..., 2:], 1e-5)
+            return float(np.abs(px - kps[..., :2])[conf].mean())
+
+        err0, err1 = reproj(init), reproj(fitted)
+        check(err1 < 0.5 * err0, f"preprocess: reprojection error {err1:.4f} px not under half "
+              f"the initialisation's {err0:.4f}")
+        pose0 = float(np.abs(init["body_pose"] - truth["body_pose"]).mean())
+        pose1 = float(np.abs(fitted["body_pose"].reshape(F, -1) - truth["body_pose"]).mean())
+        check(pose1 < pose0, f"preprocess: fitted body pose {pose1:.4f} rad from the truth, "
+              f"the initialisation {pose0:.4f}")
+        check(len(rec["net_ms"]) == F and len(rec["raster_ms"]) == 2 * F,
+              f"preprocess: NormalNet ran {len(rec.get('net_ms', []))} times, render_mesh "
+              f"{len(rec.get('raster_ms', []))} (want {F} and {2 * F}: no template fallback)")
+        crops = []  # each frame's mask cropped as compute_normal crops it
+        for i in range(F):
+            m = _mask_channel(read_png(os.path.join(cap, "masks", f"{i:05d}.png"))) > 0
+            mx, my = (torch.from_numpy(g).to(device) for g in
+                      compute_normal.crop_grid(compute_normal.mask_bbox(m), (512, 512)))
+            crops.append(compute_normal.remap_bilinear(
+                torch.from_numpy(m.astype(np.float32)).to(device)[..., None], mx, my)[..., 0])
+        alpha_ok = []
+        for i, crop in enumerate(crops):
+            want = (np.clip(crop.cpu().numpy(), 0, 1) * 255).astype(np.uint8)
+            for sub in ("normal_F", "normal_B"):
+                png = read_png(os.path.join(cap, sub, f"{i:05d}.png"))
+                alpha_ok.append(png.shape == (512, 512, 4) and np.array_equal(png[..., 3], want))
+        check(all(alpha_ok), f"preprocess: {alpha_ok.count(False)} normal PNGs are not RGBA "
+              "512x512 with the cropped mask in alpha")
+
+        net_in = rec.pop("net_args")
+        net = rec.pop("net")
+        cpu_raster = host_ops(lambda: mesh_raster.render_mesh(*rec["raster_args"]))[0]
+        with torch.no_grad():
+            cpu_net = host_ops(lambda: net(*net_in))[0]
+        check(not cpu_raster and not cpu_net, f"preprocess: ops computed on the CPU: "
+              f"render_mesh {cpu_raster}, NormalNet {cpu_net}")
+        del net, net_in
+        agree = {}
+        args = rec.pop("raster_args")
+        for side in ("front", "back"):
+            a = list(args)
+            if side == "back":
+                a[3] = a[3].clone()
+                a[3][2] *= -1.0
+            on_card = mesh_raster.render_mesh(*a)
+            on_cpu = mesh_raster.render_mesh(*(x.cpu() if torch.is_tensor(x) else x for x in a))
+            same_px = ((on_card["mask"].cpu() == on_cpu["mask"])[..., 0]
+                       & ((on_card["normal"].cpu() - on_cpu["normal"]).abs().amax(-1) <= 1e-4)
+                       & ((on_card["depth"].cpu() - on_cpu["depth"]).abs()
+                          <= 1e-4 * (1 + on_cpu["depth"].abs())))
+            agree[side] = float(same_px.float().mean())
+            check(agree[side] >= RASTER_AGREE_MIN and torch.equal(
+                on_card["overflow"].cpu(), on_cpu["overflow"]),
+                f"preprocess: render_mesh {side} on the card agrees with the CPU on "
+                f"{agree[side]:.5f} of pixels (overflow {on_card['overflow'].tolist()} vs "
+                f"{on_cpu['overflow'].tolist()})")
+        del args
+        torch.cuda.empty_cache()
+    hist = rec["smplify"]
+    ov = np.asarray(rec["overflow"])
+    rm = np.asarray(rec["raster_ms"]).reshape(F, 2)
+    print(f"[preprocess] preprocess_custom --smpl-model <npz> --econ-ckpt <mock ECON, "
+          f"{nn_params} parameters, bf16 file> --device {device}: {prep_s:.3f} s "
+          f"(compute_smplx {stage['compute_smplx']:.3f} s, compute_normal "
+          f"{stage['compute_normal']:.3f} s; frames, keypoints and masks present)")
+    print("[preprocess] SMPLify over " + str(F) + " frames jointly: " + "; ".join(
+        f"{name} {len(h['values'])} steps in {h['seconds']:.3f} s, function evaluations per "
+        f"step mean {np.mean(h['evaluations']):.2f} max {max(h['evaluations'])}, loss "
+        f"{h['values'][0]:.6g} -> {h['values'][-1]:.6g}"
+        for name, h in zip(("body", "body+hands"), hist))
+        + f"; reprojection error over the confident columns {err0:.4f} -> {err1:.4f} px; body "
+        f"pose from the truth {pose0:.5f} -> {pose1:.5f} rad (mean |.|)")
+    print(f"[preprocess] render_mesh at the 512x512 crop, K=64: front median "
+          f"{np.median(rm[:, 0]):.3f} ms, back {np.median(rm[:, 1]):.3f} ms (synced, per pass); "
+          f"overflow [dropped, capped] max {ov.max(0).tolist()}, capped total "
+          f"{int(ov[:, 1].sum())}; card = CPU on {agree['front']:.5f} / {agree['back']:.5f} of "
+          f"pixels; NormalNet median {np.median(rec['net_ms']):.3f} ms/frame (first "
+          f"{rec['net_ms'][0]:.3f}); no op on the CPU in either; normal PNGs RGBA 512x512 with "
+          f"the cropped mask in alpha")
+    rep.update(preprocess_s=prep_s, stage_s=stage, smplify=hist, reproj_px=[err0, err1],
+               pose_err=[pose0, pose1], raster_ms=rm.tolist(), overflow=ov.tolist(),
+               raster_card_cpu_agree=agree, normalnet_params=nn_params,
+               normalnet_ms=rec["net_ms"])
+
+    # ---- (6) the template fallback on a copy
+    with timed("preprocess: template fallback"):
+        copy = os.path.join(d, "template", "seq")
+        shutil.copytree(cap, copy, ignore=shutil.ignore_patterns("normal_F", "normal_B"))
+        frec = {}
+
+        def front_masks(orig):
+            def wrapped(*args, **kwargs):
+                out = orig(*args, **kwargs)
+                frec.setdefault("masks", []).append(out["mask"][..., 0] > 0.5)
+                return out
+            return wrapped
+
+        with _patched(compute_normal, "render_mesh", front_masks):
+            compute_normal.main(["--data-dir", copy, "--smpl-model", npz, "--fallback",
+                                 "template", "--device", device])
+        ious = []
+        for i, crop in enumerate(crops):
+            tmpl, crop = frec["masks"][2 * i], crop > 0.5
+            ious.append(float((tmpl & crop).sum() / (tmpl | crop).sum()))
+        shutil.rmtree(os.path.dirname(copy))
+    check(min(ious) >= TEMPLATE_IOU_MIN, f"preprocess: template IoU {min(ious):.4f} < "
+          f"{TEMPLATE_IOU_MIN}")
+    print(f"[preprocess] compute_normal --fallback template on a copy: IoU of the template's "
+          f"front mask against the capture's cropped mask min {min(ious):.4f}, median "
+          f"{np.median(ious):.4f} (gate {TEMPLATE_IOU_MIN})")
+    rep.update(template_iou=ious)
+
+    # ---- (7) training on the result
+    out = os.path.join(d, "prep_run")
+    argv = ["--dataroot", cap, "--smpl-model", npz, "--num-subdiv", str(PREP_SUBDIV), "--stage",
+            "both", "--steps", str(PREP_TRAIN_STEPS), "--log-every", "1", "--device", device,
+            "--out", out]
+    record = {"stages": []}
+    undo = instrument_train_steps(record)
+    bc.launches = 0
+    bc.bwd_launches = 0
+    try:
+        with timed("preprocess: cli.train"):
+            secs, _, rows, _ = run_train_cli(argv)
+    finally:
+        undo()
+    fwd, bwd = bc.launches, bc.bwd_launches
+    calls = record["stages"]
+    per_step = {(c["fwd"], c["bwd"]) for st in calls for c in st}
+    check(len(calls) == 2 and all(len(c) == PREP_TRAIN_STEPS for c in calls)
+          and per_step == {(FWD_PER_STEP, BWD_PER_STEP)},
+          f"preprocess: training step calls {[len(c) for c in calls]}, launches per step "
+          f"{per_step}, want {(FWD_PER_STEP, BWD_PER_STEP)}")
+    check(len(rows) == 2 * PREP_TRAIN_STEPS and all(
+        np.isfinite(r[k]) for r in rows for k in ("loss", "loss_normal_F", "loss_normal_B")),
+        f"preprocess: training rows {rows}")
+    print(f"[preprocess] cli.train --dataroot <the preprocessed capture> --smpl-model <npz> "
+          f"--stage both --steps {PREP_TRAIN_STEPS}: {secs:.3f} s; launches fwd {fwd}, bwd "
+          f"{bwd} ({FWD_PER_STEP} and {BWD_PER_STEP} in every step); ms/step "
+          f"{[round(c['ms'], 3) for st in calls for c in st]}; losses "
+          f"{[round(r['loss'], 5) for r in rows]}")
+    rep.update(train_s=secs, launches_fwd=fwd, launches_bwd=bwd, rows=rows)
+    return rep
+
+
+def _wall(fn, record, key):
+    def call(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        record[key] = time.perf_counter() - t0
+        return out
+    return call
+
+
 def ptxas_summary(log):
     """Registers and spill bytes per kernel instance from an ``-Xptxas -v``
     log, keyed by the instance's template arguments (C=7 for
@@ -3067,6 +3454,11 @@ def main():
     tmp.cleanup()
     torch.cuda.empty_cache()
     dreamer = run_dreamer(params, model, "cuda")
+    del params, model
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as prep_dir:
+        prep = run_preprocess("cuda", prep_dir)
+    torch.cuda.empty_cache()
 
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")
     block_keys = keys + ("device_ms",)
@@ -3084,6 +3476,7 @@ def main():
         "launches_reference_import_cli": ref_import["launches_fwd"],
         "launches_reference_import_render_rot": ref_import["render_rot_launches"],
         "launches_dreamer": dreamer["launches_fwd"],
+        "launches_preprocess_train": prep["launches_fwd"],
         "max_abs_err": max(c["max_abs_err"] for c in comp),
         "ms": comp[0]["ms"],
         "plain_ms": comp[0]["plain_ms"],
@@ -3111,6 +3504,7 @@ def main():
         "launches_real_capture_cli": real["launches_bwd"],
         "launches_reference_import_cli": ref_import["launches_bwd"],
         "launches_dreamer": dreamer["launches_bwd"],
+        "launches_preprocess_train": prep["launches_bwd"],
         "max_abs_err": max(c["max_abs_err"] for c in comp_bwd),
         "ms": comp_bwd[0]["ms"],
         "plain_ms": comp_bwd[0]["plain_ms"],
@@ -3150,15 +3544,14 @@ def main():
         entry.update(max_err=entry["max_abs_err"], kernel_ms=entry["ms"])
     WALL_S["total after imports"] = time.perf_counter() - T_START
     print("[time] wall s per phase: " + ", ".join(f"{k} {v:.2f}" for k, v in WALL_S.items()))
-    new_s = sum(v for k, v in WALL_S.items()
-                if k.startswith(("yaml config", "reference import", "dreamer")))
-    print(f"[time] the [yaml config], [reference import] and [dreamer] phases: {new_s:.2f} s")
+    new_s = sum(v for k, v in WALL_S.items() if k.startswith("preprocess"))
+    print(f"[time] the [preprocess] phase: {new_s:.2f} s")
     report = {"card": info, "ptxas": ptxas, "kernels": comp, "kernels_bwd": comp_bwd,
               "kernels_tiles": comp_tiles, "slice": sl, "tile_lists": tl, "oracle_probe": probe,
               "export_full": export_full, "training": tr, "image_prompt": image_prompt,
               "guided_training": guided, "cli": cli, "real_capture": real,
               "yaml_config": yaml_cfg, "reference_import": ref_import, "dreamer": dreamer,
-              "wall_s": WALL_S}
+              "preprocess": prep, "wall_s": WALL_S}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

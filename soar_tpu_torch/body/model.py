@@ -371,6 +371,40 @@ def load_smplx_npz(
     return BodyModel(parents=tuple(int(p) for p in parents), num_betas=num_betas, **t)
 
 
+def save_smplx_npz(path: str, model: BodyModel) -> None:
+    """Write ``model`` in the official SMPL-X ``.npz`` layout that
+    :func:`load_smplx_npz` reads (``v_template``, ``shapedirs`` [V, 3, S],
+    ``posedirs`` [V, 3, P], ``J_regressor``, ``weights``, ``kintree_table``,
+    ``f``, the MANO hand means from ``pose_mean`` and the landmark tables).
+    The file does not carry the extra joints' vertex ids: the reader takes
+    SMPL-X's own, so a body that should read back equal has those."""
+    def a(t):
+        return t.detach().cpu().numpy()
+
+    J = model.num_joints
+    V = model.num_verts
+    P = model.posedirs.shape[0]
+    out = dict(
+        v_template=a(model.v_template),
+        shapedirs=a(model.shapedirs),
+        posedirs=a(model.posedirs).T.reshape(V, 3, P),
+        J_regressor=a(model.J_regressor),
+        weights=a(model.lbs_weights),
+        kintree_table=np.stack([np.asarray(model.parents, np.int64), np.arange(J)]),
+        f=a(model.faces),
+    )
+    if model.pose_mean is not None and J == 55:
+        pm = a(model.pose_mean)
+        out.update(hands_meanl=pm[25 * 3:40 * 3], hands_meanr=pm[40 * 3:55 * 3])
+    if model.lmk_faces_idx is not None:
+        out.update(lmk_faces_idx=a(model.lmk_faces_idx), lmk_bary_coords=a(model.lmk_bary_coords))
+    if model.dyn_lmk_faces_idx is not None:
+        out.update(dynamic_lmk_faces_idx=a(model.dyn_lmk_faces_idx),
+                   dynamic_lmk_bary_coords=a(model.dyn_lmk_bary_coords))
+    with open(path, "wb") as f:
+        np.savez(f, **out)
+
+
 def load_smpl_pkl(path: str, num_betas: int = 10, device="cuda") -> BodyModel:
     """A legacy SMPL ``.pkl`` (basicModel_*_lbs_10_207_0_v1.0.0.pkl;
     user-supplied, https://smpl.is.tue.mpg.de/): 24 joints, no expression

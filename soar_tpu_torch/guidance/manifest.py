@@ -1,6 +1,6 @@
 """Key manifests of the torch checkpoints the guidance reads (port of
-``soar_tpu.guidance.manifest``, the four manifests of the guidance
-networks).
+``soar_tpu.guidance.manifest``: the four manifests of the guidance
+networks, and SAM's for preprocessing).
 
 Each function transcribes the expected ``{key: shape}`` inventory of one
 upstream state_dict from its public construction code, independent of the
@@ -14,7 +14,9 @@ modules here:
 - :func:`clip_vit_h_key_manifest`: open_clip's ViT-H/14 ``VisionTransformer``
   (the ImageDream checkpoint's ``embedder.model.visual.*`` subtree);
 - :func:`resampler_key_manifest`: IP-Adapter-plus ``Resampler``
-  (``image_proj_model.*``).
+  (``image_proj_model.*``);
+- :func:`sam_vit_h_key_manifest`: segment_anything's ``sam_vit_h``
+  (:mod:`soar_tpu_torch.preproc.sam`).
 
 The port's modules carry these names, so their ``state_dict()`` equals the
 manifests and a checkpoint loads with ``load_state_dict(strict=True)``:
@@ -301,3 +303,135 @@ def resampler_key_manifest(
         sd[ff + "3.weight"] = (dim, ff_mult * dim)
     return sd
 
+
+# ---------------------------------------------------------------------------
+# segment_anything sam_vit_h
+
+
+def sam_vit_h_key_manifest(
+    embed_dim: int = 1280,
+    depth: int = 32,
+    num_heads: int = 16,
+    global_attn_layers: Tuple[int, ...] = (7, 15, 23, 31),
+    window_size: int = 14,
+    img_size: int = 1024,
+    patch_size: int = 16,
+    out_chans: int = 256,
+    decoder_dim: int = 256,
+    decoder_depth: int = 2,
+    decoder_mlp_dim: int = 2048,
+    num_multimask: int = 3,
+) -> Dict[str, Tuple[int, ...]]:
+    """``{key: shape}`` of the official ``sam_vit_h`` checkpoint, transcribed
+    from segment_anything's ``modeling/`` (ImageEncoderViT + PromptEncoder +
+    MaskDecoder/TwoWayTransformer).  Includes the keys the points-only
+    predictor deliberately ignores (box corner embeddings, the
+    mask-downscaling prompt path) so unconsumed-key accounting can
+    distinguish EXPECTED leftovers from dropped weights."""
+    sd: Dict[str, Tuple[int, ...]] = {}
+
+    def linear(p, din, dout):
+        sd[p + ".weight"] = (dout, din)
+        sd[p + ".bias"] = (dout,)
+
+    def norm(p, c):
+        sd[p + ".weight"] = (c,)
+        sd[p + ".bias"] = (c,)
+
+    # --- image encoder -----------------------------------------------------
+    sd["image_encoder.patch_embed.proj.weight"] = (
+        embed_dim, 3, patch_size, patch_size,
+    )
+    sd["image_encoder.patch_embed.proj.bias"] = (embed_dim,)
+    grid = img_size // patch_size
+    sd["image_encoder.pos_embed"] = (1, grid, grid, embed_dim)
+    head_dim = embed_dim // num_heads
+    for i in range(depth):
+        b = f"image_encoder.blocks.{i}"
+        norm(b + ".norm1", embed_dim)
+        linear(b + ".attn.qkv", embed_dim, 3 * embed_dim)
+        linear(b + ".attn.proj", embed_dim, embed_dim)
+        # Decomposed relative positions: window-local blocks span the
+        # window, global blocks span the full token grid.
+        size = grid if i in global_attn_layers else window_size
+        sd[b + ".attn.rel_pos_h"] = (2 * size - 1, head_dim)
+        sd[b + ".attn.rel_pos_w"] = (2 * size - 1, head_dim)
+        norm(b + ".norm2", embed_dim)
+        linear(b + ".mlp.lin1", embed_dim, 4 * embed_dim)
+        linear(b + ".mlp.lin2", 4 * embed_dim, embed_dim)
+    # Neck convs are bias=False in segment_anything; .1/.3 are LayerNorm2d.
+    sd["image_encoder.neck.0.weight"] = (out_chans, embed_dim, 1, 1)
+    norm("image_encoder.neck.1", out_chans)
+    sd["image_encoder.neck.2.weight"] = (out_chans, out_chans, 3, 3)
+    norm("image_encoder.neck.3", out_chans)
+
+    # --- prompt encoder ----------------------------------------------------
+    sd["prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"] = (
+        2, decoder_dim // 2,
+    )
+    for i in range(4):  # 0=neg point, 1=pos point, 2/3 = box corners
+        sd[f"prompt_encoder.point_embeddings.{i}.weight"] = (1, decoder_dim)
+    sd["prompt_encoder.not_a_point_embed.weight"] = (1, decoder_dim)
+    sd["prompt_encoder.no_mask_embed.weight"] = (1, decoder_dim)
+    # Mask-prompt downscaling path (unused by the points-only predictor).
+    mask_in_chans = 16
+    sd["prompt_encoder.mask_downscaling.0.weight"] = (
+        mask_in_chans // 4, 1, 2, 2,
+    )
+    sd["prompt_encoder.mask_downscaling.0.bias"] = (mask_in_chans // 4,)
+    norm("prompt_encoder.mask_downscaling.1", mask_in_chans // 4)
+    sd["prompt_encoder.mask_downscaling.3.weight"] = (
+        mask_in_chans, mask_in_chans // 4, 2, 2,
+    )
+    sd["prompt_encoder.mask_downscaling.3.bias"] = (mask_in_chans,)
+    norm("prompt_encoder.mask_downscaling.4", mask_in_chans)
+    sd["prompt_encoder.mask_downscaling.6.weight"] = (
+        decoder_dim, mask_in_chans, 1, 1,
+    )
+    sd["prompt_encoder.mask_downscaling.6.bias"] = (decoder_dim,)
+
+    # --- mask decoder ------------------------------------------------------
+    half = decoder_dim // 2  # attention_downsample_rate=2 on cross-attns
+    n_tok = num_multimask + 1
+    sd["mask_decoder.iou_token.weight"] = (1, decoder_dim)
+    sd["mask_decoder.mask_tokens.weight"] = (n_tok, decoder_dim)
+
+    def attn(p, internal):
+        linear(p + ".q_proj", decoder_dim, internal)
+        linear(p + ".k_proj", decoder_dim, internal)
+        linear(p + ".v_proj", decoder_dim, internal)
+        linear(p + ".out_proj", internal, decoder_dim)
+
+    for i in range(decoder_depth):
+        t = f"mask_decoder.transformer.layers.{i}"
+        attn(t + ".self_attn", decoder_dim)
+        norm(t + ".norm1", decoder_dim)
+        attn(t + ".cross_attn_token_to_image", half)
+        norm(t + ".norm2", decoder_dim)
+        linear(t + ".mlp.lin1", decoder_dim, decoder_mlp_dim)
+        linear(t + ".mlp.lin2", decoder_mlp_dim, decoder_dim)
+        norm(t + ".norm3", decoder_dim)
+        attn(t + ".cross_attn_image_to_token", half)
+        norm(t + ".norm4", decoder_dim)
+    attn("mask_decoder.transformer.final_attn_token_to_image", half)
+    norm("mask_decoder.transformer.norm_final_attn", decoder_dim)
+    # output_upscaling: ConvTranspose2d, LayerNorm2d, GELU, ConvTranspose2d.
+    sd["mask_decoder.output_upscaling.0.weight"] = (
+        decoder_dim, decoder_dim // 4, 2, 2,
+    )
+    sd["mask_decoder.output_upscaling.0.bias"] = (decoder_dim // 4,)
+    norm("mask_decoder.output_upscaling.1", decoder_dim // 4)
+    sd["mask_decoder.output_upscaling.3.weight"] = (
+        decoder_dim // 4, decoder_dim // 8, 2, 2,
+    )
+    sd["mask_decoder.output_upscaling.3.bias"] = (decoder_dim // 8,)
+    for i in range(n_tok):
+        h = f"mask_decoder.output_hypernetworks_mlps.{i}.layers"
+        linear(h + ".0", decoder_dim, decoder_dim)
+        linear(h + ".1", decoder_dim, decoder_dim)
+        linear(h + ".2", decoder_dim, decoder_dim // 8)
+    ih = "mask_decoder.iou_prediction_head.layers"
+    linear(ih + ".0", decoder_dim, decoder_dim)
+    linear(ih + ".1", decoder_dim, decoder_dim)
+    linear(ih + ".2", decoder_dim, n_tok)
+    return sd

@@ -23,7 +23,9 @@ numpy arrays (``np.asarray`` on every leaf); nothing here imports JAX.
   :func:`vae_from_flax`, :func:`clip_vit_from_flax`,
   :func:`resampler_from_flax`) and text embeddings;
 - LPIPS-VGG16's flax variables (:func:`lpips_from_flax`), as the JAX
-  CLI's ``--lpips-weights`` pickle holds them.
+  CLI's ``--lpips-weights`` pickle holds them;
+- the preprocessing networks' flax variables: SAM (:func:`sam_from_flax`)
+  and ECON's NormalNet (:func:`normalnet_from_flax`).
 
 Carrying ``model.skin`` and the field keeps every random or tie-sensitive
 init step (the field's ``jax.random`` tables, the kNN neighbour sets) out
@@ -207,6 +209,15 @@ class _StateDict(dict):
         self[key + ".weight"] = torch.as_tensor(self.leaves.take(*path, "scale"))
         self[key + ".bias"] = torch.as_tensor(self.leaves.take(*path, "bias"))
 
+    def conv_transpose(self, path, key):
+        """flax ``ConvTranspose`` (HWIO, applied as a correlation) ->
+        ``nn.ConvTranspose2d`` ([in, out, kH, kW], a true transposed
+        convolution): the spatial flip of ``torch_convert.conv_transpose``
+        undone."""
+        k = self.leaves.take(*path, "kernel")[::-1, ::-1]
+        self[key + ".weight"] = torch.as_tensor(np.ascontiguousarray(k.transpose(2, 3, 0, 1)))
+        self[key + ".bias"] = torch.as_tensor(self.leaves.take(*path, "bias"))
+
 
 def unet_from_flax(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
     """``soar_tpu``'s ``MultiViewUNet`` variables -> the port's
@@ -385,4 +396,105 @@ def lpips_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
     for i in range(5):
         sd.raw((f"lin_{i}",), f"lin{i}")
     lv.done("lpips_from_flax")
+    return dict(sd)
+
+
+def sam_from_flax(variables: Dict, cfg) -> Dict[str, torch.Tensor]:
+    """``soar_tpu``'s ``SAM`` variables -> the port's :class:`soar_tpu_torch.
+    preproc.sam.SAM` state_dict (segment_anything keys); ``cfg`` is the
+    port's ``SAMConfig``.  The flax model has no box-corner point embeddings
+    and no mask-prompt path, which the points-only predictor never uses:
+    those entries are zeros."""
+    from ..guidance.manifest import sam_vit_h_key_manifest
+
+    lv = _Leaves(variables)
+    sd = _StateDict(lv)
+    e, b = ("image_encoder",), "image_encoder"
+    sd.conv(e + ("patch_embed",), b + ".patch_embed.proj")
+    sd.raw(e + ("pos_embed",), b + ".pos_embed")
+    for i in range(cfg.depth):
+        p, k = e + (f"block_{i}",), f"{b}.blocks.{i}"
+        sd.norm(p + ("norm1",), k + ".norm1")
+        sd.dense(p + ("attn", "qkv"), k + ".attn.qkv")
+        sd.dense(p + ("attn", "proj"), k + ".attn.proj")
+        sd.raw(p + ("attn", "rel_pos_h"), k + ".attn.rel_pos_h")
+        sd.raw(p + ("attn", "rel_pos_w"), k + ".attn.rel_pos_w")
+        sd.norm(p + ("norm2",), k + ".norm2")
+        sd.dense(p + ("lin1",), k + ".mlp.lin1")
+        sd.dense(p + ("lin2",), k + ".mlp.lin2")
+    sd.conv(e + ("neck_conv1",), b + ".neck.0", bias=False)
+    sd.norm(e + ("neck_ln1",), b + ".neck.1")
+    sd.conv(e + ("neck_conv2",), b + ".neck.2", bias=False)
+    sd.norm(e + ("neck_ln2",), b + ".neck.3")
+
+    p, b = ("prompt_encoder",), "prompt_encoder"
+    sd.raw(p + ("pe_gaussian",), b + ".pe_layer.positional_encoding_gaussian_matrix")
+    sd.raw(p + ("bg_embed",), b + ".point_embeddings.0.weight", lambda a: a[None])
+    sd.raw(p + ("fg_embed",), b + ".point_embeddings.1.weight", lambda a: a[None])
+    sd.raw(p + ("not_a_point_embed",), b + ".not_a_point_embed.weight", lambda a: a[None])
+    sd.raw(p + ("no_mask_embed",), b + ".no_mask_embed.weight", lambda a: a[None])
+
+    d, b = ("mask_decoder",), "mask_decoder"
+
+    def attn(path, key):
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            sd.dense(path + (name,), f"{key}.{name}")
+
+    sd.raw(d + ("iou_token",), b + ".iou_token.weight")
+    sd.raw(d + ("mask_tokens",), b + ".mask_tokens.weight")
+    for i in range(cfg.decoder_depth):
+        p, k = d + (f"twoway_{i}",), f"{b}.transformer.layers.{i}"
+        attn(p + ("self_attn",), k + ".self_attn")
+        attn(p + ("cross_attn_t2i",), k + ".cross_attn_token_to_image")
+        attn(p + ("cross_attn_i2t",), k + ".cross_attn_image_to_token")
+        for j in range(1, 5):
+            sd.norm(p + (f"norm{j}",), f"{k}.norm{j}")
+        sd.dense(p + ("mlp_lin1",), k + ".mlp.lin1")
+        sd.dense(p + ("mlp_lin2",), k + ".mlp.lin2")
+    attn(d + ("final_t2i",), b + ".transformer.final_attn_token_to_image")
+    sd.norm(d + ("norm_final",), b + ".transformer.norm_final_attn")
+    sd.conv_transpose(d + ("up1",), b + ".output_upscaling.0")
+    sd.norm(d + ("up_ln",), b + ".output_upscaling.1")
+    sd.conv_transpose(d + ("up2",), b + ".output_upscaling.3")
+    for i in range(cfg.num_multimask + 1):
+        for j in range(3):
+            sd.dense(d + (f"hyper_{i}", f"lin{j}"), f"{b}.output_hypernetworks_mlps.{i}.layers.{j}")
+    for j in range(3):
+        sd.dense(d + ("iou_head", f"lin{j}"), f"{b}.iou_prediction_head.layers.{j}")
+    lv.done("sam_from_flax")
+
+    fields = ("embed_dim", "depth", "num_heads", "global_attn_layers", "window_size", "img_size",
+              "patch_size", "out_chans", "decoder_dim", "decoder_depth", "decoder_mlp_dim",
+              "num_multimask")
+    for k, shape in sam_vit_h_key_manifest(**{f: getattr(cfg, f) for f in fields}).items():
+        if k not in sd:  # the unused prompt paths
+            sd[k] = torch.zeros(shape)
+    return dict(sd)
+
+
+def normalnet_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """``soar_tpu``'s ``NormalNet`` variables -> the port's
+    :class:`soar_tpu_torch.preproc.normal_net.NormalNet` state_dict (ECON's
+    ``netF.model.*`` / ``netB.model.*`` keys, the inverse of
+    ``soar_tpu.preproc.normal_net.convert_normalnet_params``)."""
+    lv = _Leaves(variables)
+    sd = _StateDict(lv)
+    for net in ("netF", "netB"):
+        seq = f"{net}.model"
+        n_down = sum(1 for k in lv.left if k[0] == net and k[1].startswith("ConvTranspose_")) // 2
+        n_blocks = len({k[1] for k in lv.left if k[0] == net and k[1].startswith("ResnetBlock_")})
+        sd.conv((net, "Conv_0"), f"{seq}.1")
+        idx = 4
+        for i in range(n_down):
+            sd.conv((net, f"Conv_{i + 1}"), f"{seq}.{idx}")
+            idx += 3
+        for blk in range(n_blocks):
+            sd.conv((net, f"ResnetBlock_{blk}", "Conv_0"), f"{seq}.{idx}.conv_block.1")
+            sd.conv((net, f"ResnetBlock_{blk}", "Conv_1"), f"{seq}.{idx}.conv_block.5")
+            idx += 1
+        for i in range(n_down):
+            sd.conv_transpose((net, f"ConvTranspose_{i}"), f"{seq}.{idx}")
+            idx += 3
+        sd.conv((net, f"Conv_{n_down + 1}"), f"{seq}.{idx + 1}")
+    lv.done("normalnet_from_flax")
     return dict(sd)
