@@ -135,7 +135,22 @@
    ``render_mesh`` card = CPU); the template fallback's IoU (>= 0.7);
    ``cli.train --dataroot`` on the result, 2 steps a stage, counted
    (13 + 8 launches a step).
-16. Prints the wall seconds of each phase (``[time]``), a
+16. The parallel layer and the step's memory options (``[parallel]``):
+   the guided step of 10 (its width, guidance and LPIPS) unchunked, with
+   ``remat_gen``, with ``gen_chunk`` 2 and 1 under ``remat_gen``, and with
+   ``remat_gt``: from one state and draw, losses within 1e-5 relative and
+   gradients within 1e-5 relative L2 of the unchunked step (deterministic
+   algorithms in both), 13 + 8 launches plus the recomputed forwards (8
+   for the gen views, 5 for the GT passes), then 5 synced steps of each
+   case taken in turns (median ms/step, peak memory, the launches of every
+   step), a profiled step on one draw and frame, and 0 host syncs; the
+   sharded step (both
+   sharders) on a one-rank NCCL group against the unsharded one (loss
+   1e-4, updated xyz and colours 1e-5; 13 + 8 launches, 0 host syncs);
+   ``cli.eval_ckpt`` on the stage-0 and stage-1 checkpoints of 12 (stage
+   1 equal to ``cli.train --eval``'s files); ``cli.train --synthetic
+   --multichip --steps 2`` in one process (it warns and trains).
+17. Prints the wall seconds of each phase (``[time]``), a
    ``{"kernels": [...]}`` line (the block composites with the summed
    device ms and bound of their recorded main-path launches,
    ``main_path_ms`` and ``main_path_bound_ms``, and their launches per step
@@ -816,8 +831,11 @@ def profile_view(render):
 def host_ops(fn):
     """Runs ``fn`` and returns the aten ops that produced a tensor on the
     CPU, by name and count (device transfers and literal tensors that go
-    straight to the card are listed apart), plus the number of aten ops and
-    of host syncs (a device scalar read on the host)."""
+    straight to the card are listed apart, and so are 0-element ``empty``
+    placeholders, which hold nothing and compute nothing: torch 2.11's
+    ``torch.utils.checkpoint`` makes two a checkpointed call), plus the
+    number of aten ops and of host syncs (a device scalar read on the
+    host)."""
     from collections import Counter
 
     from torch.utils._python_dispatch import TorchDispatchMode
@@ -835,10 +853,13 @@ def host_ops(fn):
             out = func(*args, **(kwargs or {}))
             self.ops += 1
             self.syncs += "_local_scalar_dense" in str(func)
-            if any(isinstance(t, torch.Tensor) and t.device.type == "cpu"
-                   for t in tree_flatten(out)[0]):
+            cpu = [t for t in tree_flatten(out)[0]
+                   if isinstance(t, torch.Tensor) and t.device.type == "cpu"]
+            if cpu:
                 name = str(func)
-                (self.moves if name.split(".")[1] in transfers else self.compute)[name] += 1
+                placeholder = name.split(".")[1] == "empty" and all(t.numel() == 0 for t in cpu)
+                moved = placeholder or name.split(".")[1] in transfers
+                (self.moves if moved else self.compute)[name] += 1
             return out
 
     rec = Record()
@@ -1956,6 +1977,311 @@ def run_guided_training(ds, params, model, device, g, ip_table, lpips_path):
         "bf16_vs_f32": bf16_spread,
         "stage0_losses": m0,
     }
+
+
+# The [parallel] phase: gen_chunk and remat at [guided train]'s width, the
+# sharded step on a one-rank NCCL group, eval_ckpt and --multichip.
+PARALLEL_ROUNDS = 5  # synced steps of each case, taken in turns, after one warm-up
+PARALLEL_RTOL = 1e-5  # a case's losses (relative) and gradients (relative L2)
+SHARDED_LOSS_RTOL, SHARDED_PARAM_ATOL = 1e-4, 1e-5  # tests/test_parallel.py's bounds
+# Forward composites a recompute adds to a step: each gen view's main and occ
+# passes; the GT pass's main and occ and the normal pair's front, back and occ.
+REMAT_GEN_FWD, REMAT_GT_FWD = 2 * 4, 5
+PARALLEL_CASES = {
+    "unchunked": {},
+    "remat_gen": dict(remat_gen=True, remat_gt=False),
+    "gen_chunk=2 remat_gen": dict(gen_chunk=2, remat_gen=True, remat_gt=False),
+    "gen_chunk=1 remat_gen": dict(gen_chunk=1, remat_gen=True, remat_gt=False),
+    "remat_gt": dict(remat_gen=False, remat_gt=True),
+}
+
+
+class deterministic:
+    """cuDNN's and PyTorch's deterministic algorithms while the ``with``
+    block runs (warnings only where an op has none), so that two runs of
+    one computation agree to the bit and a comparison sees only what the
+    step's options change."""
+
+    def __enter__(self):
+        self.saved = (torch.are_deterministic_algorithms_enabled(),
+                      torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+
+    def __exit__(self, *exc):
+        torch.use_deterministic_algorithms(self.saved[0], warn_only=True)
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = self.saved[1:]
+
+
+def snapshot_state(state, device=None):
+    """Copies of the parameters, buffers, Adam state, and the counters, on
+    ``device`` (where they are when None)."""
+    def copy(v):
+        return v.detach().to(device or v.device, copy=True)
+
+    return ({k: copy(v) for k, v in state.params.state_dict().items()},
+            {p: {k: copy(v) for k, v in s.items()} for p, s in state.opt.adam.state.items()},
+            state.opt.count, state.step)
+
+
+def restore_state(state, snap):
+    """Puts back what :func:`snapshot_state` copied (Adam's state as it was,
+    none where it had none)."""
+    params, adam, count, step = snap
+    with torch.no_grad():
+        for k, v in state.params.state_dict().items():
+            v.copy_(params[k])
+    state.opt.adam.state.clear()
+    for p, s in adam.items():
+        state.opt.adam.state[p] = {k: v.to(p.device, copy=True) for k, v in s.items()}
+    state.opt.count, state.step = count, step
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_parallel(ds, params, model, device, g, ip_table, lpips_path):
+    """(a) The guided step of :func:`run_guided_training` (its width, LPIPS
+    and guidance) with ``gen_chunk`` and remat: per case of
+    ``PARALLEL_CASES``, the loss and gradients from one state and one draw
+    against the unchunked step's (deterministic algorithms in both), the
+    counted launches, then ms/step and peak memory over steps taken in
+    turns, device busy on one draw and frame, and host syncs.
+    (b) The sharded step (both sharders) on a one-rank NCCL group against
+    the unsharded step from one state and draw.  The avatar is put back as
+    it was found, so later phases see what they saw before."""
+    import gc
+
+    import torch.distributed as dist
+
+    from soar_tpu_torch.parallel import make_view_mesh, replicate, row_sharder, view_sharder
+    from soar_tpu_torch.render import block_composite
+    from soar_tpu_torch.train.config import stage1_config
+    from soar_tpu_torch.train.lpips import make_lpips_fn
+    from soar_tpu_torch.train.trainer import make_train_step, sample_step_draws
+
+    bc = block_composite.composite_block
+    # What the phases before left to the garbage collector (cycles of
+    # closures over networks) would count in this phase's peak memory.
+    gc.collect()
+    torch.cuda.empty_cache()
+    lpips16 = make_lpips_fn(lpips_path, dtype=torch.bfloat16, device=device)
+    ts = train_setup(ds, params, model, device, lpips16)
+    cfg, raster, sizes, opt, state = ts.cfg, ts.raster, ts.sizes, ts.opt, ts.state
+    stage = stage1_config()
+    batches = [dict(b, ref_ip=ip_table[f]) for f, b in zip(ds.train_idx, ts.batches)]
+    state.step = 1
+    draw_gen = torch.Generator(device=device).manual_seed(3)
+    frames = np.random.RandomState(4)
+
+    def make(**options):
+        return make_train_step(model, cfg, stage, opt, raster=raster, use_explicit=False,
+                               has_normals=True, guidance_fn=g, lpips_fn=lpips16, **sizes,
+                               **options)
+
+    def one_step(fn):
+        draws = sample_step_draws(draw_gen, cfg, latent_size=g.latent_size)
+        return fn(state, batches[frames.randint(len(batches))], draws)
+
+    steps = {name: make(**options) for name, options in PARALLEL_CASES.items()}
+    # On the host: the hash tables alone are 0.5 GiB, which the cases' peak
+    # memory would count.
+    first = snapshot_state(state, device="cpu")
+    rep = {"cases": {}}
+
+    # ---- (a) every case from one state and one draw: loss, gradients and
+    # launches of loss + backward
+    draws = sample_step_draws(draw_gen, cfg, latent_size=g.latent_size)
+    base = None
+    with timed("parallel: chunk and remat against the unchunked step"), deterministic():
+        for name, fn in steps.items():
+            opt.zero_grad()
+            f0, b0 = bc.launches, bc.bwd_launches
+            loss, m, _ = fn.loss_fn(state.params, state.bg_params, batches[0], draws, state.step)
+            loss.backward()
+            torch.cuda.synchronize()
+            launched = (bc.launches - f0, bc.bwd_launches - b0)
+            m = {k: float(v.detach()) for k, v in m.items()}
+            grads = {k: p.grad.detach().clone() for k, p in state.params.named_parameters()
+                     if p.grad is not None}
+            opt.zero_grad()
+            if base is None:
+                base = (m, grads)
+            loss_rel = {k: abs(m[k] - base[0][k]) / max(abs(base[0][k]), 1e-30) for k in m}
+            grad_rel = {k: float((grads[k] - base[1][k]).norm()
+                                 / base[1][k].norm().clamp_min(1e-30)) for k in base[1]}
+            opts = PARALLEL_CASES[name]
+            want = (FWD_PER_STEP + REMAT_GEN_FWD * bool(opts.get("remat_gen"))
+                    + REMAT_GT_FWD * bool(opts.get("remat_gt")), BWD_PER_STEP)
+            check(launched == want, f"parallel {name}: launches {launched}, want {want}")
+            check(set(m) == set(base[0]) and set(grads) == set(base[1]),
+                  f"parallel {name}: metrics {sorted(m)} / grads {sorted(grads)}")
+            check(all(np.isfinite(v) for v in m.values()), f"parallel {name}: losses {m}")
+            worst_loss = max(v for k, v in loss_rel.items() if not k.startswith("raster_"))
+            worst_grad = max(grad_rel.values())
+            check(worst_loss <= PARALLEL_RTOL and worst_grad <= PARALLEL_RTOL,
+                  f"parallel {name}: losses {loss_rel}, gradients {grad_rel}")
+            rep["cases"][name] = {"options": {k: v for k, v in opts.items()},
+                                  "launches_loss_backward": launched, "loss": m["loss"],
+                                  "loss_rel": worst_loss, "grad_rel_l2": worst_grad}
+            del grads
+    del base
+
+    # ---- timed in turns, one synced step of each case a round, so that the
+    # host's drift falls on every case alike; then each case's profiled
+    # step on one draw and frame, and a step under host_ops
+    for fn in steps.values():
+        one_step(fn)
+    for name in steps:
+        rep["cases"][name].update(step_ms=[], peak_memory_gib=0.0)
+    with timed("parallel: steps in turns"):
+        for _ in range(PARALLEL_ROUNDS):
+            for name, fn in steps.items():
+                r = rep["cases"][name]
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                f0, b0 = bc.launches, bc.bwd_launches
+                t0 = time.perf_counter()
+                one_step(fn)
+                torch.cuda.synchronize()
+                r["step_ms"].append(1e3 * (time.perf_counter() - t0))
+                r["peak_memory_gib"] = max(r["peak_memory_gib"],
+                                           torch.cuda.max_memory_allocated() / 2**30)
+                launched = (bc.launches - f0, bc.bwd_launches - b0)
+                check(launched == tuple(r["launches_loss_backward"]),
+                      f"parallel {name}: a step launched {launched}, want "
+                      f"{r['launches_loss_backward']}")
+    draws_prof = sample_step_draws(draw_gen, cfg, latent_size=g.latent_size)
+    for name, fn in steps.items():
+        r = rep["cases"][name]
+        r["launches"] = tuple(r["launches_loss_backward"])
+        r["ms_per_step"] = float(np.median(r["step_ms"]))
+        with timed("parallel: profile and host_ops"):
+            prof = profile_view(lambda: fn(state, batches[0], draws_prof))
+            cpu_compute, cpu_moves, n_ops, n_syncs = host_ops(lambda: one_step(fn))
+        r["device_busy_ms"] = prof["device_busy_ms"]
+        r["idle_share"] = 1.0 - prof["device_busy_ms"] / r["ms_per_step"]
+        check(prof["device_busy_ms"] > 0 and not cpu_compute and n_syncs == 0,
+              f"parallel {name}: busy {prof['device_busy_ms']} ms, CPU ops {cpu_compute}, "
+              f"{n_syncs} host syncs in a step")
+        r["aten_ops"], r["host_syncs"], r["cpu_transfers"] = n_ops, n_syncs, cpu_moves
+        print(f"[parallel] {name}: {r['ms_per_step']:.3f} ms/step (median of {PARALLEL_ROUNDS} "
+              f"synced steps taken in turns with the other cases: "
+              f"{[round(x, 3) for x in r['step_ms']]}), device busy {r['device_busy_ms']:.3f} "
+              f"ms on one draw and frame (idle share {r['idle_share']:.4f}), peak memory "
+              f"{r['peak_memory_gib']:.3f} GiB; launches fwd {r['launches'][0]}, bwd "
+              f"{r['launches'][1]} a step; {n_ops} aten ops, {n_syncs} host syncs, CPU results "
+              f"{cpu_moves}; against the unchunked step (same state and draw, deterministic "
+              f"algorithms): losses {r['loss_rel']:.3g} relative, gradients "
+              f"{r['grad_rel_l2']:.3g} relative L2 (bound {PARALLEL_RTOL})")
+
+    # ---- (b) the sharded step on a one-rank NCCL group
+    restore_state(state, first)
+    unsharded = steps["unchunked"]
+    draws = sample_step_draws(draw_gen, cfg, latent_size=g.latent_size)
+    port = free_port()
+    with timed("parallel: one-rank NCCL sharded step"):
+        dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", world_size=1,
+                                rank=0)
+        try:
+            mesh = make_view_mesh()
+            replicate(mesh, [state.params, state.bg_params, state.opt])
+            sharded = make(shard_views=view_sharder(mesh), shard_gt=row_sharder(mesh))
+            snap = snapshot_state(state)
+            with deterministic():
+                _, mu = unsharded(state, batches[0], draws)
+                want = {k: getattr(state.params, k).detach().clone() for k in ("xyz", "colors")}
+                loss_u = float(mu["loss"])
+                restore_state(state, snap)
+                f0, b0 = bc.launches, bc.bwd_launches
+                _, ms_ = sharded(state, batches[0], draws)
+                torch.cuda.synchronize()
+                launched = (bc.launches - f0, bc.bwd_launches - b0)
+            loss_s = float(ms_["loss"])
+            diff = {k: float((getattr(state.params, k) - want[k]).abs().max()) for k in want}
+            cpu_compute, _, n_ops, n_syncs = host_ops(lambda: one_step(sharded))
+        finally:
+            dist.destroy_process_group()
+    loss_rel = abs(loss_s - loss_u) / max(abs(loss_u), 1e-30)
+    check(launched == (FWD_PER_STEP, BWD_PER_STEP), f"sharded step: launches {launched}")
+    check(loss_rel <= SHARDED_LOSS_RTOL and all(v <= SHARDED_PARAM_ATOL for v in diff.values()),
+          f"sharded step: loss rel diff {loss_rel:.3g}, updated params {diff}")
+    check(not cpu_compute and n_syncs == 0,
+          f"sharded step: CPU ops {cpu_compute}, {n_syncs} host syncs")
+    rep["sharded"] = {"loss_unsharded": loss_u, "loss_sharded": loss_s, "loss_rel": loss_rel,
+                      "updated_max_abs_diff": diff, "launches": launched, "aten_ops": n_ops,
+                      "host_syncs": n_syncs}
+    print(f"[parallel] sharded step (view_sharder and row_sharder on a one-rank NCCL group, "
+          f"tcp://127.0.0.1:{port}) against the unsharded step, same state and draw: loss "
+          f"{loss_s:.6g} vs {loss_u:.6g} (rel diff {loss_rel:.3g}, bound {SHARDED_LOSS_RTOL}); "
+          f"updated xyz / colors max |diff| {diff['xyz']:.3g} / {diff['colors']:.3g} (bound "
+          f"{SHARDED_PARAM_ATOL}); launches {launched}; {n_ops} aten ops, {n_syncs} host "
+          "syncs.  NCCL refuses two ranks on one GPU, so two ranks run only on the CPU "
+          "(gloo, tests/test_torch_port_parallel.py)")
+    restore_state(state, first)
+    return rep
+
+
+def run_eval_ckpt(device, d, real):
+    """``cli.eval_ckpt`` on the stage-0 and stage-1 checkpoints that
+    :func:`run_real_capture` wrote under ``d``, with its capture flags and
+    raster; stage 1's PSNR and SSIM (``average.txt``, per-frame files) must
+    equal the ``cli.train --eval`` run's to the character."""
+    from soar_tpu_torch.cli import eval_ckpt
+
+    body = "test:" + ",".join(str(x) for x in REAL_BODY_DIMS)
+    flags = ["--dataroot", os.path.join(d, "capture"), "--smpl-model", body, "--num-subdiv",
+             str(REAL_SUBDIV), "--max-per-tile", str(TRAIN_K), "--composite-dtype", "bf16",
+             "--device", device]
+    run = os.path.join(d, "run")
+    rep = {}
+    for st in (0, 1):
+        out = os.path.join(d, f"eval_stage{st}")
+        with timed("parallel: eval_ckpt"):
+            t0 = time.perf_counter()
+            res = eval_ckpt.main(flags + ["--ckpt", os.path.join(run, f"stage{st}"),
+                                          "--out", out])
+            secs = time.perf_counter() - t0
+        avg = open(os.path.join(out, "average.txt")).read().split()
+        check(len(avg) == 3 and all(np.isfinite(float(x)) for x in avg[:2]),
+              f"eval_ckpt stage {st}: average.txt {avg}")
+        rep[f"stage{st}"] = {"psnr": res["psnr"], "ssim": res["ssim"], "s": secs}
+    want = open(os.path.join(run, "test", "average.txt")).read().split()
+    same = avg[:2] == want[:2] and all(
+        open(os.path.join(out, f)).read() == open(os.path.join(run, "test", f)).read()
+        for f in ("psnrs.txt", "ssims.txt"))
+    check(same, f"eval_ckpt stage 1: {avg[:2]}, cli.train --eval {want[:2]}")
+    check([float(x) for x in want[:2]] == real["average"][:2], "eval_ckpt: the run's eval moved")
+    print(f"[parallel] eval_ckpt {' '.join(flags[:-2])} (real capture's checkpoints): stage 0 "
+          f"PSNR {rep['stage0']['psnr']:.4f}, SSIM {rep['stage0']['ssim']:.4f} in "
+          f"{rep['stage0']['s']:.3f} s; stage 1 PSNR {rep['stage1']['psnr']:.4f}, SSIM "
+          f"{rep['stage1']['ssim']:.4f} in {rep['stage1']['s']:.3f} s, equal to cli.train "
+          f"--eval's average.txt, psnrs.txt and ssims.txt to the character")
+    return rep
+
+
+def run_multichip_cli(device):
+    """``cli.train --synthetic --multichip --steps 2`` in one process: it
+    warns and trains."""
+    with tempfile.TemporaryDirectory() as d, timed("parallel: cli --multichip"):
+        secs, text, rows, _ = run_train_cli(["--synthetic", "--multichip", "--steps", "2",
+                                             "--log-every", "1", "--dump-every", "0",
+                                             "--val-every", "0", "--device", device,
+                                             "--out", d])
+        saved = all(os.path.exists(os.path.join(d, f"stage{st}", "avatar.pt")) for st in (0, 1))
+    check("warning: --multichip with a single device; ignoring" in text,
+          "cli --multichip: no single-device warning")
+    check(len(rows) == 4 and all(np.isfinite(r["loss"]) for r in rows) and saved,
+          f"cli --multichip: rows {rows}")
+    print(f"[parallel] train --synthetic --multichip --steps 2 in one process: warned "
+          f"'--multichip with a single device; ignoring' and trained both stages in {secs:.2f} "
+          f"s (losses {[round(r['loss'], 5) for r in rows]})")
+    return {"s": secs, "rows": rows}
 
 
 def read_obj_counts(path):
@@ -3443,12 +3769,15 @@ def main():
     tr = run_training(ds_train, params, model, "cuda", lpips_path)
     g, ip_table, image_prompt = run_image_prompt(ds_train, "cuda")
     guided = run_guided_training(ds_train, params, model, "cuda", g, ip_table, lpips_path)
+    parallel = run_parallel(ds_train, params, model, "cuda", g, ip_table, lpips_path)
     del g, ip_table
     torch.cuda.empty_cache()
     with timed("cli and export"):
         cli = run_cli("cuda", lpips_path)
     torch.cuda.empty_cache()
     real = run_real_capture("cuda", lpips_path, tmp.name)
+    parallel["eval_ckpt"] = run_eval_ckpt("cuda", tmp.name, real)
+    parallel["cli_multichip"] = run_multichip_cli("cuda")
     torch.cuda.empty_cache()
     ref_import = run_reference_import("cuda", tmp.name)
     tmp.cleanup()
@@ -3477,6 +3806,9 @@ def main():
         "launches_reference_import_render_rot": ref_import["render_rot_launches"],
         "launches_dreamer": dreamer["launches_fwd"],
         "launches_preprocess_train": prep["launches_fwd"],
+        "launches_parallel_per_step": {name: r["launches"][0]
+                                       for name, r in parallel["cases"].items()},
+        "launches_parallel_sharded_step": parallel["sharded"]["launches"][0],
         "max_abs_err": max(c["max_abs_err"] for c in comp),
         "ms": comp[0]["ms"],
         "plain_ms": comp[0]["plain_ms"],
@@ -3505,6 +3837,9 @@ def main():
         "launches_reference_import_cli": ref_import["launches_bwd"],
         "launches_dreamer": dreamer["launches_bwd"],
         "launches_preprocess_train": prep["launches_bwd"],
+        "launches_parallel_per_step": {name: r["launches"][1]
+                                       for name, r in parallel["cases"].items()},
+        "launches_parallel_sharded_step": parallel["sharded"]["launches"][1],
         "max_abs_err": max(c["max_abs_err"] for c in comp_bwd),
         "ms": comp_bwd[0]["ms"],
         "plain_ms": comp_bwd[0]["plain_ms"],
@@ -3544,14 +3879,14 @@ def main():
         entry.update(max_err=entry["max_abs_err"], kernel_ms=entry["ms"])
     WALL_S["total after imports"] = time.perf_counter() - T_START
     print("[time] wall s per phase: " + ", ".join(f"{k} {v:.2f}" for k, v in WALL_S.items()))
-    new_s = sum(v for k, v in WALL_S.items() if k.startswith("preprocess"))
-    print(f"[time] the [preprocess] phase: {new_s:.2f} s")
+    new_s = sum(v for k, v in WALL_S.items() if k.startswith("parallel"))
+    print(f"[time] the [parallel] phase: {new_s:.2f} s")
     report = {"card": info, "ptxas": ptxas, "kernels": comp, "kernels_bwd": comp_bwd,
               "kernels_tiles": comp_tiles, "slice": sl, "tile_lists": tl, "oracle_probe": probe,
               "export_full": export_full, "training": tr, "image_prompt": image_prompt,
               "guided_training": guided, "cli": cli, "real_capture": real,
               "yaml_config": yaml_cfg, "reference_import": ref_import, "dreamer": dreamer,
-              "preprocess": prep, "wall_s": WALL_S}
+              "preprocess": prep, "parallel": parallel, "wall_s": WALL_S}
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1)

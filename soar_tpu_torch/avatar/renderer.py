@@ -120,7 +120,13 @@ def render_view(
     settings: RenderSettings = RenderSettings(),
     attrs: Optional[Dict[str, torch.Tensor]] = None,
     smpl_override: Optional[Dict[str, torch.Tensor]] = None,
+    rows=None,
 ) -> Dict[str, torch.Tensor]:
+    """One posed view's render dict (a ``(front, back)`` pair with
+    ``settings.both_faces``).  ``rows`` (a
+    :func:`soar_tpu_torch.parallel.row_sharder`) composites only this
+    rank's band of tile rows and gathers the bands before the post ops
+    (:mod:`soar_tpu_torch.render.tiled`)."""
     g_main, occ_colors = posed_gaussians(
         params, model, frame_idx, settings, attrs, smpl_override
     )
@@ -167,12 +173,12 @@ def render_view(
         # The occ image is the same for both faces (same camera, colors and
         # ascending order): computed once and shared.
         front, back, occ_out = rasterize_front_back(
-            g_main, occ_colors, camera, image_size, bg_color, main_cfg
+            g_main, occ_colors, camera, image_size, bg_color, main_cfg, rows=rows
         )
         return post(front, occ_out), post(back, occ_out)
     if settings.lite:
-        return post(rasterize(g_main, camera, image_size, bg_color, main_cfg), None)
+        return post(rasterize(g_main, camera, image_size, bg_color, main_cfg, rows=rows), None)
     out, occ_out = rasterize_with_occ(
-        g_main, occ_colors, camera, image_size, bg_color, main_cfg
+        g_main, occ_colors, camera, image_size, bg_color, main_cfg, rows=rows
     )
     return post(out, occ_out)

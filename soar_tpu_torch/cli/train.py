@@ -36,9 +36,14 @@ from a reference Lightning ``.ckpt``: its explicit surfel tensors by name
 and, in a field-driven run, its attribute field distilled into the hash
 field.  ``--trace-steps N`` writes a ``torch.profiler`` Chrome trace of
 stage 0's first N steps under ``<out>/trace``; ``--wandb`` also logs to
-wandb when it is installed.  The flags and defaults are the JAX CLI's;
-``--multichip`` (multi-device training, not ported yet) stops with an
-error instead of being ignored.
+wandb when it is installed.  ``--multichip`` under ``torchrun
+--nproc_per_node=N`` trains on N devices, one process each
+(:mod:`soar_tpu_torch.parallel`: the gen views sharded, the GT passes
+row-sharded, the gradients averaged), and only rank 0 writes metrics,
+checkpoints, images and the eval; in one process it warns and trains on
+the one device.  The flags and defaults are the JAX CLI's.
+
+    torchrun --nproc_per_node=4 -m soar_tpu_torch.cli.train --multichip --synthetic
 """
 
 from __future__ import annotations
@@ -47,10 +52,6 @@ import argparse
 import json
 import os
 import time
-
-# flag -> what it waits for; each is refused when given.
-NOT_PORTED = {"multichip": "multi-device training"}
-
 
 def resolve_stage_cfg(yaml_cfg, st: int, steps_arg):
     """Stage config precedence: an explicitly passed ``--steps`` wins, else
@@ -230,10 +231,6 @@ def main(argv=None):
     ap.add_argument("--device", type=str, default="cuda")
     args = ap.parse_args(argv)
 
-    for flag, what in NOT_PORTED.items():
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} is not ported yet ({what} arrives "
-                     "with a later slice of the port)")
     guidance_from_yaml = False
     yaml_cfg = None
     if args.config:
@@ -258,15 +255,45 @@ def main(argv=None):
     if not args.synthetic and not (args.dataroot and args.smpl_model):
         raise SystemExit("--dataroot and --smpl-model required (or --synthetic)")
 
+    from .. import resolve_device
+
+    dev = resolve_device(args.device)
+    mesh, own_group = None, False
+    if args.multichip:
+        import torch.distributed as dist
+
+        from ..parallel import make_view_mesh
+
+        if int(os.environ.get("WORLD_SIZE", "1")) > 1 and not dist.is_initialized():
+            # torchrun's environment; one process per device.
+            dist.init_process_group("nccl" if dev.type == "cuda" else "gloo")
+            own_group = True
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            mesh = make_view_mesh()
+            dev = mesh.device
+            print(f"multichip: rank {mesh.rank} of {mesh.world} on {dev} (gen views sharded, "
+                  "GT passes row-sharded)")
+        else:
+            print("warning: --multichip with a single device; ignoring")
+    try:
+        _train(args, yaml_cfg, guidance_from_yaml, dev, mesh)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args, yaml_cfg, guidance_from_yaml, dev, mesh):
+    """The stages of :func:`main` on ``dev``; with ``mesh``, sharded over
+    its group and only rank 0 writes files."""
     import dataclasses as dc
     from collections import OrderedDict
 
     import numpy as np
     import torch
 
-    from .. import resolve_device
     from ..avatar.renderer import RenderSettings, render_view
     from ..io.checkpoint import load_avatar, save_avatar
+    from ..parallel import replicate, row_sharder, view_sharder
     from ..render.types import RasterConfig
     from ..train.config import TrainConfig
     from ..train.evaluate import evaluate
@@ -282,8 +309,9 @@ def main(argv=None):
     )
     from .common import real_setup, synthetic_setup
 
-    dev = resolve_device(args.device)
-    os.makedirs(args.out, exist_ok=True)
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        os.makedirs(args.out, exist_ok=True)
     if yaml_cfg is not None:
         cfg = yaml_cfg["train"]
         if args.n_views is not None:
@@ -387,14 +415,22 @@ def main(argv=None):
         ip_table = ip_tables.get(st)
         split_sds = guidance_fn is not None and args.sds_mode == "split"
         state, opt = init_train_state(params, cfg, seed=args.seed, stage=stage_cfg)
+        shard = {}
+        if mesh is not None:
+            # Every rank starts from rank 0's state.  No --composite switch
+            # as in the JAX CLI, which falls back to the XLA composite here
+            # because GSPMD cannot partition a Pallas call: each rank
+            # launches the CUDA kernels on its own views and tile rows.
+            replicate(mesh, [state.params, state.bg_params, state.opt])
+            shard = dict(shard_views=view_sharder(mesh), shard_gt=row_sharder(mesh))
         step_fn = make_train_step(
             model, cfg, stage_cfg, opt,
             gen_size=gen_size, gt_size=ds.image_size, normal_size=normal_size,
             raster=raster, use_explicit=args.use_explicit,
             has_normals=has_normals, has_normal_B=has_normal_B, guidance_fn=guidance_fn,
-            lpips_fn=lpips_fn, split_sds=split_sds,
+            lpips_fn=lpips_fn, split_sds=split_sds, **shard,
         )
-        logger = MetricLogger(args.out, use_wandb=args.wandb)
+        logger = MetricLogger(args.out, use_wandb=args.wandb) if writer else None
         timer = StepTimer()
         generator = torch.Generator(device=dev).manual_seed(args.seed + st)
         rng = np.random.RandomState(args.seed + st)
@@ -431,7 +467,7 @@ def main(argv=None):
             state.step = start_it
             print(f"stage {st}: continuing from step {start_it}/{n_steps}")
         trace_ctx = (profile_trace(os.path.join(args.out, "trace"))
-                     if args.trace_steps > 0 and st == 0 else None)
+                     if writer and args.trace_steps > 0 and st == 0 else None)
         if trace_ctx:
             trace_ctx.__enter__()
         t0 = time.time()
@@ -464,6 +500,8 @@ def main(argv=None):
             if trace_ctx and it + 1 == args.trace_steps:
                 trace_ctx.__exit__(None, None, None)
                 trace_ctx = None
+            if not writer:
+                continue
             if it % args.log_every == 0 or it == n_steps - 1:
                 m = {k: round(float(v), 5) for k, v in metrics.items()}
                 m["stage"] = st
@@ -489,16 +527,18 @@ def main(argv=None):
                                        torch.ones(3, device=dev), vidx, dump_settings)
                 dump_debug_images(os.path.join(args.out, "val"), it, vout,
                                   gt={"rgb": ds.images[vidx]})
+        params = state.params
+        global_step_base += n_steps
+        if not writer:
+            continue
         if trace_ctx:
             trace_ctx.__exit__(None, None, None)
         logger.close()
-        params = state.params
         ckpt = os.path.join(args.out, f"stage{st}")
         save_avatar(ckpt, params, step=n_steps)
         print(f"saved {ckpt}")
-        global_step_base += n_steps
 
-    if args.eval:
+    if args.eval and writer:
         res = evaluate(params, model, ds, save_dir=os.path.join(args.out, "test"),
                        settings=RenderSettings(use_explicit=args.use_explicit,
                                                raster=raster),

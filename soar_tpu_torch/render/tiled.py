@@ -12,6 +12,13 @@ kernel on CUDA tensors, its plain version on CPU tensors) unless
 The back-surface pass walks each tile's ascending run farthest-first (the
 reversed gather), either alone (``compose_reverse``) or beside the front
 pass from one sort (:func:`rasterize_front_back`).
+
+``rows`` (a :func:`soar_tpu_torch.parallel.row_sharder`) row-shards a view
+over the ranks of a process group: preprocess, binning, sort and gather
+run whole on every rank, each rank composites its band of tile rows (a
+contiguous slice of the tile axis), and the bands' composite outputs are
+gathered, with autograd, before the output assembly.  Without it the
+process composites every tile.
 """
 
 from __future__ import annotations
@@ -223,9 +230,10 @@ def rasterize(
     image_size: Tuple[int, int],
     bg_color: torch.Tensor,
     cfg: RasterConfig = RasterConfig(),
+    rows=None,
 ) -> RenderOutputs:
     """Render one view.  Returns images shaped [H, W, ...]."""
-    return _rasterize_core(g, camera, image_size, bg_color, cfg, None)[0]
+    return _rasterize_core(g, camera, image_size, bg_color, cfg, None, rows=rows)[0]
 
 
 def rasterize_with_occ(
@@ -235,11 +243,12 @@ def rasterize_with_occ(
     image_size: Tuple[int, int],
     bg_color: torch.Tensor,
     cfg: RasterConfig = RasterConfig(),
+    rows=None,
 ) -> Tuple[RenderOutputs, RenderOutputs]:
     """Main pass + front-face-culled occlusion pass sharing one preprocess /
     binning / sort / gather: the occ pass re-composites the gathered slots
     with the occ colors, back-facing splats suppressed."""
-    return _rasterize_core(g, camera, image_size, bg_color, cfg, occ_colors)
+    return _rasterize_core(g, camera, image_size, bg_color, cfg, occ_colors, rows=rows)
 
 
 def rasterize_front_back(
@@ -249,6 +258,7 @@ def rasterize_front_back(
     image_size: Tuple[int, int],
     bg_color: torch.Tensor,
     cfg: RasterConfig = RasterConfig(),
+    rows=None,
 ) -> Tuple[RenderOutputs, RenderOutputs, RenderOutputs]:
     """Front-surface pass + back-surface pass + occlusion pass, all from one
     preprocess / binning / sort / gather: the back pass walks each tile's
@@ -257,9 +267,27 @@ def rasterize_front_back(
     if cfg.sort_descending or cfg.compose_reverse:
         raise ValueError("rasterize_front_back takes an ascending, forward config")
     (front, back), occ = _rasterize_core(
-        g, camera, image_size, bg_color, cfg, occ_colors, also_back=True
+        g, camera, image_size, bg_color, cfg, occ_colors, also_back=True, rows=rows
     )
     return front, back, occ
+
+
+def _band_composite(composite, rows, ntx: int, nty: int):
+    """``composite`` on this rank's band of tile rows: its seven per-tile
+    inputs sliced to the band's tiles, its three outputs gathered from
+    every rank's band (one collective: packed along the channel axis)."""
+    r0, r1 = rows.block(nty)
+    t0, t1 = r0 * ntx, r1 * ntx
+
+    def run(*args):
+        tensors, consts = args[:7], args[7:]
+        accum, corr, t_final = composite(*(a[t0:t1] for a in tensors), *consts)
+        C = accum.shape[-1]
+        band = torch.cat([accum, corr[..., None], t_final[..., None]], dim=-1)
+        whole = rows.gather(band, nty, unit=ntx)
+        return whole[..., :C], whole[..., C], whole[..., C + 1]
+
+    return run
 
 
 def _rasterize_core(
@@ -270,6 +298,7 @@ def _rasterize_core(
     cfg: RasterConfig,
     occ_colors: Optional[torch.Tensor],
     also_back: bool = False,
+    rows=None,
 ):
     H, W = image_size
     tile = cfg.tile
@@ -287,6 +316,8 @@ def _rasterize_core(
     sorted_idx, starts, counts, (ntx, nty), overflow = bin_and_sort(
         pre, image_size, cfg
     )
+    if rows is not None:
+        composite = _band_composite(composite, rows, ntx, nty)
     slot_valid = _slot_valid(counts, K)
     C_ch = pre.colors.shape[-1]
     packed = pack_surfels(pre)

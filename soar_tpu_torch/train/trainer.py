@@ -25,10 +25,18 @@ forward-only, the caller computes ``batch["sds_target"]`` with
 squared distance to the target.  ``lpips_fn`` adds the normal-LPIPS terms
 and the VGG RGB term (:mod:`soar_tpu_torch.train.lpips`).
 ``sds_via_params`` and ``lpips_via_batch`` select the same computation
-here: the weights live in modules.  Not ported yet: view / row sharding
-(``shard_views``, ``shard_gt``) and ``gen_chunk`` wait for the
-multi-device slice; passing any of them raises.  ``remat_gen`` and
-``remat_gt`` have no meaning in eager PyTorch and are accepted and ignored.
+here: the weights live in modules.
+
+Multi-device (:mod:`soar_tpu_torch.parallel`, one process per device):
+``shard_views`` renders this rank's block of the gen views and gathers the
+renders before the losses; ``shard_gt`` composites this rank's band of tile
+rows in each GT pass and gathers it before the post ops; the gradients are
+averaged over the group before Adam, which then equals the unsharded step.
+One device: ``gen_chunk`` renders the gen views in chunks of that many
+(without ``shard_views``, as in the JAX package), the unit ``remat_gen``
+recomputes; ``remat_gen`` / ``remat_gt`` put the gen chunks (each view
+without ``gen_chunk``) / each GT pass under ``torch.utils.checkpoint``, so
+the backward re-renders them instead of keeping their intermediates.
 """
 
 from __future__ import annotations
@@ -38,6 +46,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..avatar import state as S
 from ..avatar.optim import AvatarOptimizer, make_optimizer
@@ -49,6 +58,7 @@ from ..data.cameras import (
     sample_head_cameras,
     sample_multiview_cameras,
 )
+from ..parallel.views import Sharder
 from ..render.types import RasterConfig
 from . import losses as L
 from .background import (
@@ -138,9 +148,13 @@ def sample_step_draws(
     return draws
 
 
-def _not_ported(name: str, later: str):
-    raise NotImplementedError(f"make_train_step({name}=...) is not ported yet: it "
-                              f"arrives with the {later} slice of the port")
+def _recomputed(fn, *args, **kwargs):
+    """``fn`` under ``torch.utils.checkpoint`` (non-reentrant) when autograd
+    records: the backward runs it again instead of keeping what it saved.
+    The renders draw no random numbers, so no RNG state is kept."""
+    if not torch.is_grad_enabled():
+        return fn(*args, **kwargs)
+    return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
 
 
 def make_train_step(
@@ -157,8 +171,8 @@ def make_train_step(
     n_views: Optional[int] = None,
     has_normals: bool = True,
     has_normal_B: bool = True,
-    shard_views: Optional[Callable] = None,
-    shard_gt: Optional[Callable] = None,
+    shard_views: Optional[Sharder] = None,
+    shard_gt: Optional[Sharder] = None,
     lpips_fn: Optional[Callable] = None,
     lpips_via_batch: bool = False,
     split_sds: bool = False,
@@ -189,19 +203,51 @@ def make_train_step(
     draws["sds"])`` and ``guidance_fn.compute_target(latents, c2w,
     state.step, draws["sds"], ref_rgb=..., ref_ip=...)``.
 
+    ``shard_views`` / ``shard_gt``: :func:`soar_tpu_torch.parallel.
+    view_sharder` / ``row_sharder`` of one mesh; every rank of its group
+    calls the step with the same state, batch and draws (the state
+    :func:`soar_tpu_torch.parallel.replicate`-d), computes the same loss and
+    metrics, and takes the same Adam step on the gradients averaged over
+    the group.  Any split of the views or tile rows over the ranks works,
+    uneven too, as long as each rank has one.
+
+    ``gen_chunk``: without ``shard_views``, the gen views render in chunks
+    of ``gen_chunk`` (each the unit ``remat_gen`` recomputes).  The port
+    renders the views one after another anyway, so a chunk changes neither
+    values nor memory without remat.
+
+    ``remat_gen`` / ``remat_gt``: the gen chunks (each view when unchunked)
+    / each GT pass run under ``torch.utils.checkpoint`` (non-reentrant):
+    the backward re-renders them, relaunching their forward composites,
+    instead of keeping their intermediates.  Both None means no remat here,
+    where the JAX package remats whenever the step is guided: that default
+    was chosen for a TPU's memory beside the diffusion weights, while the
+    guided step peaks below 8 GiB of the card's 80 GB and a recompute costs
+    a re-render.  ``remat_gt`` None follows ``remat_gen``, and an explicit
+    True or False does what the JAX package's does.
+
     ``train_step.loss_fn(params, bg_params, batch, draws, step)`` returns
     ``(loss, metrics, aux)`` without stepping (``aux`` holds the renders and
     the gen views' background composite)."""
-    for name, val, later in (
-        ("shard_views", shard_views, "multi-device"),
-        ("shard_gt", shard_gt, "multi-device"),
-        ("gen_chunk", gen_chunk, "multi-device"),
-    ):
-        if val is not None and val is not False:
-            _not_ported(name, later)
-    del lpips_via_batch, remat_gen, remat_gt, sds_via_params  # no meaning here
+    del lpips_via_batch, sds_via_params  # no meaning here: the weights live in modules
 
     nv = n_views or cfg.n_views
+    remat_gen = bool(remat_gen)
+    remat_gt = remat_gen if remat_gt is None else bool(remat_gt)
+    if gen_chunk is not None and gen_chunk < 1:
+        raise ValueError(f"gen_chunk must be positive, got {gen_chunk}")
+    # The gen views' render units: this rank's block under shard_views,
+    # else chunks of gen_chunk, else each view when rematerialised, else
+    # all views in one go.
+    if shard_views is not None:
+        gen_units = [shard_views.block(nv)]
+    elif gen_chunk is not None and gen_chunk < nv:
+        gen_units = [(i, min(i + gen_chunk, nv)) for i in range(0, nv, gen_chunk)]
+    elif remat_gen:
+        gen_units = [(v, v + 1) for v in range(nv)]
+    else:
+        gen_units = [(0, nv)]
+    mesh_sharder = shard_views if shard_views is not None else shard_gt
     gen_settings = RenderSettings(use_explicit=use_explicit, gen_view=True, raster=raster)
     gt_settings = RenderSettings(use_explicit=use_explicit, gen_view=False, raster=raster)
     w = stage.loss
@@ -215,12 +261,21 @@ def make_train_step(
         c2w, fovy = draws["c2w"], draws["fovy"]
         dev = c2w.device
         zeros = torch.zeros(3, device=dev)
+
+        def render_range(lo: int, hi: int) -> List[Dict]:
+            outs = []
+            for v in range(lo, hi):
+                cam = camera_from_c2w(c2w[v], fovy[v], fovy[v], znear=0.1, zfar=100.0)
+                outs.append(render_view(params, model, cam, gen_size, zeros, frame_idx,
+                                        settings, attrs=attrs))
+            return outs
+
         outs: List[Dict] = []
-        for v in range(nv):
-            cam = camera_from_c2w(c2w[v], fovy[v], fovy[v], znear=0.1, zfar=100.0)
-            outs.append(render_view(params, model, cam, gen_size, zeros, frame_idx,
-                                    settings, attrs=attrs))
+        for lo, hi in gen_units:
+            outs += _recomputed(render_range, lo, hi) if remat_gen else render_range(lo, hi)
         gen = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+        if shard_views is not None:
+            gen = {k: shard_views.gather(v, nv) for k, v in gen.items()}
 
         # Neural-bg composite over the gen renders
         # (``renderer/gaussian_batch_renderer.py:262, 330-332``).
@@ -240,21 +295,23 @@ def make_train_step(
         attrs = None if use_explicit else query_attributes(params, model)
         gen, comp_rgb, bg_rgb = gen_pass(params, bg_params, frame_idx, draws, attrs)
 
-        # ---- GT passes
+        # ---- GT passes (row-sharded under shard_gt, recomputed under remat_gt)
+        def gt_render(*args):
+            if remat_gt:
+                return _recomputed(render_view, params, model, *args, attrs=attrs, rows=shard_gt)
+            return render_view(params, model, *args, attrs=attrs, rows=shard_gt)
+
         rand_bg = draws["rand_bg"]
-        gt = render_view(params, model, batch["gt_cam"], gt_size, rand_bg, frame_idx,
-                         gt_settings, attrs=attrs)
+        gt = gt_render(batch["gt_cam"], gt_size, rand_bg, frame_idx, gt_settings)
         if has_normals:
             ones = torch.ones(3, device=rand_bg.device)
             if use_nB:
                 # Front + back (+ one occ) from one preprocess and sort.
-                gt_nF, gt_nB = render_view(
-                    params, model, batch["normal_cam"], normal_size, ones, frame_idx,
-                    dataclasses.replace(gt_settings, both_faces=True), attrs=attrs,
-                )
+                gt_nF, gt_nB = gt_render(batch["normal_cam"], normal_size, ones, frame_idx,
+                                         dataclasses.replace(gt_settings, both_faces=True))
             else:
-                gt_nF = render_view(params, model, batch["normal_cam"], normal_size, ones,
-                                    frame_idx, gt_settings, attrs=attrs)
+                gt_nF = gt_render(batch["normal_cam"], normal_size, ones, frame_idx,
+                                  gt_settings)
 
         metrics = {}
 
@@ -403,6 +460,8 @@ def make_train_step(
         state.opt.zero_grad()
         loss, metrics, _ = loss_fn(state.params, state.bg_params, batch, draws, state.step)
         loss.backward()
+        if mesh_sharder is not None:
+            mesh_sharder.average_gradients(state.params)
         # The background MLP is not optimised (the reference builds its
         # optimizer but never returns it).
         state.opt.step()
@@ -413,8 +472,8 @@ def make_train_step(
     def sds_prelude(state: TrainState, batch: Dict, draws: Dict):
         """Split SDS's forward-only half: the gen views rendered ``lite``
         (no occ pass or curvature; the same main render) from the step's
-        draws and VAE-encoded.  Returns (latents [V, 4, h, w], c2w,
-        draws["sds"])."""
+        draws, sharded and gathered as in the step, and VAE-encoded.
+        Returns (latents [V, 4, h, w], c2w, draws["sds"])."""
         params = state.params
         attrs = None if use_explicit else query_attributes(params, model)
         gen, comp_rgb, _ = gen_pass(params, state.bg_params, batch["frame_idx"], draws, attrs,

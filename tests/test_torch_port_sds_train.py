@@ -30,6 +30,7 @@ from soar_tpu.train.config import StageConfig as JStageConfig
 from soar_tpu.train.config import TrainConfig as JTrainConfig
 from soar_tpu_torch.guidance import build as tbuild
 from soar_tpu_torch.io.from_jax import background_from_numpy, unet_from_flax, vae_from_flax
+from soar_tpu_torch.parallel import ViewMesh, view_sharder
 from soar_tpu_torch.render.types import RasterConfig
 from soar_tpu_torch.train import config as tconfig
 from soar_tpu_torch.train import trainer as ttr
@@ -229,13 +230,14 @@ def test_warm_steps_never_call_the_guidance(avatar):
     assert "sds" not in draws  # the guidance-free draws are unchanged
     with pytest.raises(ValueError, match="latent_size"):
         step(state, batch, draws)
-    # Split SDS and LPIPS are ported (test_torch_port_lpips.py); sharding
-    # is not.
+    # Split SDS and LPIPS are ported (test_torch_port_lpips.py), and so is
+    # sharding (test_torch_port_parallel.py): a one-rank view sharder.
     split = ttr.make_train_step(tmodel, cfg, stage, opt, gen_size=GEN, gt_size=SIZE,
                                 normal_size=SIZE, guidance_fn=spy, split_sds=True)
     assert split.sds_prelude is not None and step.sds_prelude is None
     ttr.make_train_step(tmodel, cfg, stage, opt, gen_size=GEN, gt_size=SIZE,
                         normal_size=SIZE, lpips_fn=lambda a, b: a.mean())
-    with pytest.raises(NotImplementedError):
-        ttr.make_train_step(tmodel, cfg, stage, opt, gen_size=GEN, gt_size=SIZE,
-                            normal_size=SIZE, shard_views=lambda c: c)
+    sharded = ttr.make_train_step(
+        tmodel, cfg, stage, opt, gen_size=GEN, gt_size=SIZE, normal_size=SIZE,
+        shard_views=view_sharder(ViewMesh(None, 0, 1, torch.device("cpu"))))
+    assert callable(sharded) and sharded.sds_prelude is None

@@ -469,17 +469,16 @@ def test_cli_train_and_render_rot_round_trip(tmp_path, monkeypatch, capsys):
                "--device", "cpu", "--out", rot])
     pngs = sorted(f for f in os.listdir(rot) if f.endswith(".png"))
     assert len(pngs) == 8
-    # --resume into the same stage continues from its step; the flag of the
-    # part not ported yet stops with an error instead of being ignored.
+    # --resume into the same stage continues from its step.
     tcli.main(["--synthetic", "--stage", "1", "--steps", "3", "--device", "cpu", "--out", out,
                "--resume", os.path.join(out, "stage1"), "--log-every", "1"])
     rows = [json.loads(line) for line in open(os.path.join(out, "metrics.jsonl"))]
     assert rows[-1]["step"] == 2 and len(rows) == 5
     # Guidance without its weights (checkpoint or mock, and embeddings) is
-    # refused too.
+    # refused.
     for bad in (["--guidance", "imagedream"], ["--guidance", "mvdream"],
                 ["--guidance", "mvdream", "--guidance-ckpt", "x"],
-                ["--multichip"], []):
+                []):
         with pytest.raises(SystemExit):
             tcli.main((["--synthetic"] if bad else []) + bad + ["--device", "cpu",
                                                                 "--out", out])
