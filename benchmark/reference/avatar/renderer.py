@@ -1,0 +1,167 @@
+"""Posed-avatar view rendering: LBS skinning -> field query -> rasterize
+(port of ``soar_tpu.avatar.renderer``).
+
+Pose the canonical surfels and their frames with the kNN-blended skinning
+matrices, query the attribute field for colors/scales, rasterize a main
+pass plus a front-face-culled occlusion pass, and post-process normals and
+curvature.  ``both_faces`` renders the front and back surfaces (plus the
+shared occ pass) from one preprocess and sort.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from ..body.skinning import apply_point_mats, point_skinning_mats
+from ..core.camera import Camera
+from ..core.transforms import quat_to_rotmat, rotmat_to_quat
+from ..field.attribute_field import attribute_field_apply
+from ..render.postprocess import depth2normal, normal2curv
+from ..render.tiled import rasterize_front_back, rasterize_with_occ
+from ..render.types import GaussianInputs, RasterConfig
+from . import state as S
+from .state import AvatarModel, AvatarParams
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderSettings:
+    """Static per-call switches; defaults equal the JAX package's."""
+
+    use_explicit: bool = False  # explicit colors/scales vs attribute field
+    offset: bool = False  # add field offsets to the posed points
+    gen_view: bool = False  # random novel view: zero root + axis permute
+    render_front: bool = True  # False => back-surface pass
+    force_opaque: bool = True  # SOAR surfels composite with opacity 1
+    raster: RasterConfig = RasterConfig()
+    # both_faces: front and back surface passes from one shared preprocess
+    # and sort; render_view then returns a (front_dict, back_dict) tuple.
+    both_faces: bool = False
+
+
+# Axis permutation "+z,+x,+y" applied to gen-view points: points transform
+# as x @ T and frames as T^T @ R.
+_PERMUTE_T = ((0.0, 0.0, 1.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+
+
+def query_attributes(params: AvatarParams, model: AvatarModel):
+    """Query the canonical attribute field at the (detached) surfel
+    positions — camera-independent, so one query serves every view."""
+    return attribute_field_apply(params.field, params.xyz.detach())
+
+
+def posed_gaussians(
+    params: AvatarParams,
+    model: AvatarModel,
+    frame_idx: int,
+    settings: RenderSettings = RenderSettings(),
+    attrs: Optional[Dict[str, torch.Tensor]] = None,
+    smpl_override: Optional[Dict[str, torch.Tensor]] = None,
+) -> Tuple[GaussianInputs, torch.Tensor]:
+    """LBS-pose the avatar for one frame and assemble the rasterizer inputs.
+    Returns ``(GaussianInputs, occ_colors)``."""
+    points = params.xyz
+    rot = S.get_rotation(params)
+
+    live_A = S.live_affines(
+        model, frame_idx, zero_root=settings.gen_view, override=smpl_override
+    )
+    pt_mats = point_skinning_mats(model.skin, live_A)
+
+    if attrs is None:
+        attrs = query_attributes(params, model)
+
+    posed = apply_point_mats(pt_mats, points)
+    if settings.offset:
+        posed = posed + attrs["offsets"]
+
+    # Multiply the (blended) skinning rotation with the surfel frame, then
+    # convert back to a normalized quaternion, as the reference does.
+    R_surf = quat_to_rotmat(rot)
+    R_out = pt_mats[..., :3, :3] @ R_surf
+    if settings.gen_view:
+        T = torch.tensor(_PERMUTE_T, dtype=posed.dtype, device=posed.device)
+        posed = posed @ T
+        R_out = T.T @ R_out
+    rot_out = rotmat_to_quat(R_out)
+
+    if settings.use_explicit:
+        scale1 = S.get_scaling(params)  # [N, 1]
+        colors = S.get_colors(params)
+    else:
+        scale1 = attrs["scales"]
+        colors = attrs["shs"]
+    scales = torch.cat([scale1, scale1, torch.zeros_like(scale1)], dim=-1)
+
+    if settings.force_opaque:
+        opac = torch.ones_like(params.opacity[:, 0])
+    else:
+        opac = S.get_opacity(params)[:, 0]
+
+    g_main = GaussianInputs(
+        means3d=posed, quats=rot_out, scales=scales, opacities=opac, colors=colors
+    )
+    occ_colors = S.get_occ(params).expand(points.shape[0], 3)
+    return g_main, occ_colors
+
+
+def render_view(
+    params: AvatarParams,
+    model: AvatarModel,
+    camera: Camera,
+    image_size: Tuple[int, int],
+    bg_color: torch.Tensor,
+    frame_idx: int,
+    settings: RenderSettings = RenderSettings(),
+    attrs: Optional[Dict[str, torch.Tensor]] = None,
+    smpl_override: Optional[Dict[str, torch.Tensor]] = None,
+) -> Dict[str, torch.Tensor]:
+    """One posed view's render dict (a ``(front, back)`` pair with
+    ``settings.both_faces``)."""
+    g_main, occ_colors = posed_gaussians(
+        params, model, frame_idx, settings, attrs, smpl_override
+    )
+    main_cfg = dataclasses.replace(
+        settings.raster,
+        render_front=False,
+        sort_descending=False,
+        # Back-surface pass: composite farthest-first without re-sorting,
+        # sharing the ascending sort with the occlusion pass.
+        compose_reverse=not (settings.render_front or settings.both_faces),
+    )
+    flip = torch.tensor([1.0, -1.0, -1.0], device=g_main.means3d.device)
+
+    def post(out, occ_out):
+        mask = out.opac > 1e-5
+        # Outside the mask keep the values but stop gradients.
+        normal = torch.where(mask[..., None], out.normal, out.normal.detach())
+        normal = normal * flip  # y/z flip of the view-space normal
+        normal01 = (normal + 1.0) / 2.0
+        hard = out.opac.detach() > 1e-5
+        curv = normal2curv(normal, hard)
+        dn = depth2normal(out.depth, hard, camera, image_size) * flip
+        return {
+            "render": out.color,
+            "normal": normal01,
+            "depth": out.depth,
+            "pred_normal": (dn + 1.0) / 2.0,
+            "mask": out.opac,
+            "occ": occ_out.color,
+            "curv": curv,
+            "overflow": out.overflow,
+            "visible": out.visible,
+        }
+
+    if settings.both_faces:
+        # The occ image is the same for both faces (same camera, colors and
+        # ascending order): computed once and shared.
+        front, back, occ_out = rasterize_front_back(
+            g_main, occ_colors, camera, image_size, bg_color, main_cfg
+        )
+        return post(front, occ_out), post(back, occ_out)
+    out, occ_out = rasterize_with_occ(
+        g_main, occ_colors, camera, image_size, bg_color, main_cfg
+    )
+    return post(out, occ_out)

@@ -1,0 +1,404 @@
+"""Two-stage training step (port of ``soar_tpu.train.trainer``).
+
+One step renders the gen views (4 random novel views, each a main pass and
+an occ pass), the GT RGB pass with its occ pass and the normal front/back
+pair (``both_faces``: front, back and occ from one sort), evaluates every
+explicit loss of the reference system (``gaussian_surfel_mvdream.py:
+259-460``) and, with a ``guidance_fn``, the SDS loss on the gen views,
+backpropagates once and takes one per-group Adam step.  On CUDA every
+composite, forward and backward, is a hand-written kernel
+(:mod:`soar_tpu_torch.render.block_composite`).
+
+Random draws are split from the step: :func:`sample_step_draws` takes them
+from a ``torch.Generator``, and the step takes them as an argument, so a
+test can hand it the JAX package's draws.  The step updates the state in
+place (the parameters and Adam moments are the only copies) and returns it.
+
+SDS guidance (:func:`soar_tpu_torch.guidance.build.build_guidance`) joins
+the loss after ``stage.sds_start``; a step at or before it never calls the
+guidance, as the JAX CLI's guidance-free warm-up program does not.  Its
+gradient reaches the renders through ``exp(-3 occ)``
+(:func:`scale_gradient`).  ``lpips_fn`` adds the normal-LPIPS terms and the
+VGG RGB term (:mod:`soar_tpu_torch.train.lpips`).
+
+The benchmark's copy keeps the one path its checks run: one device, the
+gen views rendered in one go, no recompute, the fused SDS term.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..avatar import state as S
+from ..avatar.optim import AvatarOptimizer, make_optimizer
+from ..avatar.renderer import RenderSettings, query_attributes, render_view
+from ..avatar.state import AvatarModel, AvatarParams
+from ..core.camera import camera_from_c2w, get_ray_directions, get_rays
+from ..data.cameras import (
+    CameraSampleConfig,
+    sample_head_cameras,
+    sample_multiview_cameras,
+)
+from ..render.types import RasterConfig
+from . import losses as L
+from .background import (
+    apply_random_aug,
+    background_color,
+    init_background,
+    sample_random_aug,
+)
+from .config import StageConfig, TrainConfig, scheduled
+
+
+@dataclasses.dataclass
+class TrainState:
+    params: AvatarParams
+    bg_params: Dict
+    opt: AvatarOptimizer
+    step: int
+
+
+def scale_gradient(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Value-preserving gradient scaling: forward x, backward dL/dx * w, the
+    functional form of the reference's ``register_hook`` occ modulation
+    (``gaussian_surfel_mvdream.py:26-30, 213-218``)."""
+    w = w.detach()
+    return x * w + (x * (1.0 - w)).detach()
+
+
+def init_train_state(
+    params: AvatarParams,
+    cfg: TrainConfig,
+    seed: int = 0,
+    stage: Optional[StageConfig] = None,
+) -> Tuple[TrainState, AvatarOptimizer]:
+    """Optimizer over ``params`` (the stage's optimizer config if it has
+    one) and the background MLP drawn from a generator seeded ``seed + 7``
+    on the parameters' device."""
+    optim_cfg = stage.optim if (stage is not None and stage.optim) else cfg.optim
+    opt = make_optimizer(params, optim_cfg)
+    gen = torch.Generator(device=params.xyz.device).manual_seed(seed + 7)
+    return TrainState(params=params, bg_params=init_background(gen), opt=opt, step=0), opt
+
+
+def gen_camera_config(cfg: TrainConfig, nv: int) -> CameraSampleConfig:
+    """Gen-view camera distribution from the train config."""
+    return CameraSampleConfig(
+        n_view=nv,
+        elevation_range=cfg.elevation_range,
+        azimuth_range=cfg.azimuth_range,
+        fovy_range=cfg.fovy_range,
+        camera_distance_range=cfg.camera_distance_range,
+        zoom_range=cfg.zoom_range,
+        relative_radius=cfg.relative_radius,
+    )
+
+
+def sample_step_draws(
+    generator: torch.Generator, cfg: TrainConfig, n_views: Optional[int] = None,
+    latent_size: Optional[int] = None,
+) -> Dict:
+    """Every random draw of one step, on the generator's device:
+    ``c2w`` [V, 4, 4] and ``fovy`` [V] of the gen views (the head cameras
+    where ``head``), ``head`` (a bool tensor), ``rand_bg`` [3] (the GT
+    pass's background) and ``bg_aug`` (:func:`sample_random_aug`).  With
+    ``latent_size`` (the guidance's, ``guidance_fn.latent_size``) also
+    ``sds``: the timestep's uniform ``u`` and the latent ``noise`` and
+    ``vae_eps`` [V, h, w, 4], drawn after the others."""
+    nv = n_views or cfg.n_views
+    dev = generator.device
+    c2w, fovy = sample_multiview_cameras(generator, gen_camera_config(cfg, nv))
+    head = torch.zeros((), dtype=torch.bool, device=dev)
+    if cfg.head_prob > 0.0:
+        # With probability head_prob the gen batch uses close-up cameras.
+        head_c2w, head_fovy = sample_head_cameras(generator, nv)
+        head = torch.rand((), generator=generator, device=dev) < cfg.head_prob
+        c2w = torch.where(head, head_c2w, c2w)
+        fovy = torch.where(head, head_fovy, fovy)
+    bg_aug = sample_random_aug(generator, cfg.invert_bg_prob)
+    rand_bg = torch.rand(3, generator=generator, device=dev)
+    draws = {"c2w": c2w, "fovy": fovy, "head": head, "rand_bg": rand_bg, "bg_aug": bg_aug}
+    if latent_size is not None:
+        shape = (nv, latent_size, latent_size, 4)
+        draws["sds"] = {
+            "u": torch.rand((), generator=generator, device=dev),
+            "noise": torch.randn(shape, generator=generator, device=dev),
+            "vae_eps": torch.randn(shape, generator=generator, device=dev),
+        }
+    return draws
+
+
+def make_train_step(
+    model: AvatarModel,
+    cfg: TrainConfig,
+    stage: StageConfig,
+    opt: AvatarOptimizer,
+    gen_size: Tuple[int, int],
+    gt_size: Tuple[int, int],
+    normal_size: Tuple[int, int],
+    raster: RasterConfig = RasterConfig(),
+    guidance_fn: Optional[Callable] = None,
+    use_explicit: bool = False,
+    n_views: Optional[int] = None,
+    has_normals: bool = True,
+    has_normal_B: bool = True,
+    lpips_fn: Optional[Callable] = None,
+):
+    """The training step of one stage: ``(state, batch, draws) -> (state,
+    metrics)``, with ``batch`` from :func:`make_gt_batch` and ``draws``
+    from :func:`sample_step_draws` (with ``latent_size`` when guided);
+    ``metrics`` holds detached 0-d tensors on the device.
+
+    ``guidance_fn(inp, c2w, step, draws, ref_rgb, ref_mask, comp_bg,
+    ref_ip) -> {"loss_sds", "grad_norm"}`` receives the occ-weighted render
+    stack [V, H, W, 3] (stage 1: the neural-background composite; stage 0:
+    the rendered normals), the gen views' c2w, ``draws["sds"]``, the stage's
+    reference image and mask, the first view's background and
+    ``batch["ref_ip"]`` when the batch has it.
+
+    ``lpips_fn(a, b) -> scalar`` takes [H, W, 3] images in [-1, 1]; with
+    it the normal terms gain the LPIPS of the masked normals, and the VGG
+    RGB term joins when its weight is nonzero.
+
+    ``train_step.loss_fn(params, bg_params, batch, draws, step)`` returns
+    ``(loss, metrics, aux)`` without stepping (``aux`` holds the renders and
+    the gen views' background composite)."""
+    nv = n_views or cfg.n_views
+    gen_settings = RenderSettings(use_explicit=use_explicit, gen_view=True, raster=raster)
+    gt_settings = RenderSettings(use_explicit=use_explicit, gen_view=False, raster=raster)
+    w = stage.loss
+    # Back-surface supervision is gated like the reference's
+    # ``lambda_normal_B > 0.0 and "gt_normal_B" in batch``.
+    nB_w_on = isinstance(w.normal_B, (tuple, list)) or float(w.normal_B) != 0.0
+    use_nB = has_normals and has_normal_B and nB_w_on
+
+    def gen_pass(params, bg_params, frame_idx, draws, attrs):
+        """The gen views and their neural-background composite."""
+        c2w, fovy = draws["c2w"], draws["fovy"]
+        zeros = torch.zeros(3, device=c2w.device)
+        outs: List[Dict] = []
+        for v in range(nv):
+            cam = camera_from_c2w(c2w[v], fovy[v], fovy[v], znear=0.1, zfar=100.0)
+            outs.append(render_view(params, model, cam, gen_size, zeros, frame_idx,
+                                    gen_settings, attrs=attrs))
+        gen = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+        # Neural-bg composite over the gen renders
+        # (``renderer/gaussian_batch_renderer.py:262, 330-332``).
+        Hg, Wg = gen_size
+        focal = 0.5 * Hg / torch.tan(0.5 * fovy)
+        rays_d = torch.stack([
+            get_rays(get_ray_directions(Hg, Wg, (focal[v], focal[v])), c2w[v])[1]
+            for v in range(nv)
+        ])
+        bg_rgb = apply_random_aug(background_color(bg_params, rays_d), draws["bg_aug"])
+        comp_rgb = gen["render"] + (1.0 - gen["mask"][..., None]) * bg_rgb
+        return gen, comp_rgb, bg_rgb
+
+    def loss_fn(params, bg_params, batch, draws, step: int):
+        frame_idx = batch["frame_idx"]
+        # One field query serves every render of the step.
+        attrs = None if use_explicit else query_attributes(params, model)
+        gen, comp_rgb, bg_rgb = gen_pass(params, bg_params, frame_idx, draws, attrs)
+
+        # ---- GT passes
+        def gt_render(*args):
+            return render_view(params, model, *args, attrs=attrs)
+
+        rand_bg = draws["rand_bg"]
+        gt = gt_render(batch["gt_cam"], gt_size, rand_bg, frame_idx, gt_settings)
+        if has_normals:
+            ones = torch.ones(3, device=rand_bg.device)
+            if use_nB:
+                # Front + back (+ one occ) from one preprocess and sort.
+                gt_nF, gt_nB = gt_render(batch["normal_cam"], normal_size, ones, frame_idx,
+                                         dataclasses.replace(gt_settings, both_faces=True))
+            else:
+                gt_nF = gt_render(batch["normal_cam"], normal_size, ones, frame_idx,
+                                  gt_settings)
+
+        metrics = {}
+
+        def C(v):
+            return scheduled(v, step)
+
+        # ---- explicit losses (``gaussian_surfel_mvdream.py:259-460``)
+        m_gt = batch["gt_mask"][..., None]
+        mask = batch["gt_mask"] > 1e-5
+        gt_rgb_blended = batch["gt_rgb"] * m_gt + rand_bg * (1.0 - m_gt)
+        loss_recon = 0.8 * L.masked_l1(gt["render"], batch["gt_rgb"], mask) + 0.2 * (
+            1.0 - L.ssim(gt["render"], gt_rgb_blended)
+        )
+        loss = C(w.recon) * loss_recon
+        metrics["loss_recon"] = loss_recon
+
+        loss_mask = torch.mean(torch.abs(gt["mask"] - batch["gt_mask"]))
+        loss = loss + C(w.mask) * loss_mask
+        metrics["loss_mask"] = loss_mask
+
+        if has_normals:
+            nmask = batch["gt_normal_mask"] > 1e-5
+            loss_nF = 0.2 * L.cos_loss(gt_nF["normal"], batch["gt_normal_F"], nmask, thrsh=0.0)
+            if use_nB:
+                loss_nB = 0.2 * L.cos_loss(gt_nB["normal"], batch["gt_normal_B"], nmask,
+                                           thrsh=0.0)
+            if lpips_fn is not None:
+                # LPIPS of the masked normals, shifted to [-1, 1], inside the
+                # normal terms (``gaussian_surfel_mvdream.py:342-393``), with
+                # the reference's quirk: the front pass multiplies by the raw
+                # alpha mask, the back pass by the binarised one.
+                nm_raw = batch["gt_normal_mask"][..., None]
+                nm_bin = nmask[..., None].to(nm_raw.dtype)
+
+                def nlp(pred01, gt01, nm):
+                    return lpips_fn((pred01 * nm - 0.5) * 2.0, (gt01 * nm - 0.5) * 2.0)
+
+                loss_nF = loss_nF + nlp(gt_nF["normal"], batch["gt_normal_F"], nm_raw)
+                if use_nB:
+                    loss_nB = loss_nB + nlp(gt_nB["normal"], batch["gt_normal_B"], nm_bin)
+            loss = loss + C(w.normal_F) * loss_nF
+            metrics["loss_normal_F"] = loss_nF
+            if use_nB:
+                loss = loss + C(w.normal_B) * loss_nB
+                metrics["loss_normal_B"] = loss_nB
+                # Nested in the reference's normal_B branch (``:394-399``).
+                loss_nmask = torch.mean(torch.abs(gt_nF["mask"] - batch["gt_normal_mask"]))
+                loss = loss + C(w.normal_mask) * loss_nmask
+                metrics["loss_normal_mask"] = loss_nmask
+
+        # VGG/LPIPS RGB term (``gaussian_surfel_mvdream.py:401-410``), gated
+        # on its own weight only: the reference nests it under
+        # lambda_normal_B > 0, which the configs that enable it set to 0.
+        if lpips_fn is not None and (isinstance(w.vgg, (tuple, list)) or float(w.vgg) != 0.0):
+            loss_vgg = lpips_fn((gt["render"] - 0.5) * 2.0, (gt_rgb_blended - 0.5) * 2.0)
+            loss = loss + C(w.vgg) * loss_vgg
+            metrics["loss_vgg"] = loss_vgg
+
+        # occ supervision: visible (masked) pixels should predict occ -> 1.
+        occ_gt = gt["occ"][..., 0]
+        m = mask.to(occ_gt.dtype)
+        loss_occ = torch.sum((1.0 - occ_gt) * m) / torch.clamp_min(torch.sum(m), 1.0)
+        loss = loss + C(w.occ) * loss_occ
+        metrics["loss_occ"] = loss_occ
+
+        # Normal consistency: rendered vs depth-derived normals; the gen
+        # views' term joins after sds_start.
+        loss_nc = L.cos_loss(gt["pred_normal"], gt["normal"], thrsh=np.pi / 10000.0)
+        gen_nc = L.cos_loss(gen["pred_normal"], gen["normal"], thrsh=np.pi / 10000.0)
+        after_sds = float(step > stage.sds_start)
+        loss_nc = (loss_nc + after_sds * gen_nc) / (1.0 + after_sds)
+        nc_w = C(w.normal_consistency) + 0.1 * min(2.0 * step / 2000.0, 1.0)
+        loss = loss + nc_w * loss_nc
+        metrics["loss_normal_consistency"] = loss_nc
+
+        loss_curv = torch.mean(torch.abs(gen["curv"]))
+        loss = loss + C(w.curv) * loss_curv
+        metrics["loss_curv"] = loss_curv
+
+        if use_explicit:
+            scales_mean = torch.mean(S.get_scaling(params))
+        else:
+            scales_mean = torch.mean(attrs["scales"])
+        loss = loss + C(w.scales) * scales_mean
+        metrics["loss_scales"] = scales_mean
+
+        # eps-safe norm: at init xyz == original_pos, where the exact L2
+        # norm's gradient is NaN.
+        dvec = params.xyz - model.original_pos
+        loss_delta = torch.mean(torch.sqrt(torch.sum(dvec * dvec, -1) + 1e-12))
+        loss = loss + C(w.delta) * loss_delta
+        metrics["loss_delta"] = loss_delta
+
+        # ---- SDS guidance (``gaussian_surfel_mvdream.py:180-254``): the
+        # occ-weighted hook exp(-3 occ) on the guidance input, gated on
+        # lambda_occ > 0 as in the reference (a schedule counts as on); the
+        # RGB composite in stage 1, the rendered normals in stage 0, with
+        # that stage's reference image and the first view's background.
+        if guidance_fn is not None and step > stage.sds_start:
+            if "sds" not in draws:
+                raise ValueError("a guided step needs the SDS draws: sample_step_draws(..., "
+                                 "latent_size=guidance_fn.latent_size)")
+            inp = comp_rgb if stage.training_stage == 1 else gen["normal"]
+            if isinstance(w.occ, (tuple, list)) or float(w.occ) != 0.0:
+                inp = scale_gradient(inp, torch.exp(-3.0 * gen["occ"].detach()))
+            ref = ("gt_rgb_crop", "gt_mask_crop") if stage.training_stage == 1 else (
+                "gt_normal_F", "gt_normal_mask")
+            sds_out = guidance_fn(inp, draws["c2w"], step, draws["sds"],
+                                  ref_rgb=batch.get(ref[0]), ref_mask=batch.get(ref[1]),
+                                  comp_bg=bg_rgb[0], ref_ip=batch.get("ref_ip"))
+            loss = loss + C(w.sds) * sds_out["loss_sds"]
+            metrics["loss_sds"] = sds_out["loss_sds"]
+            if "grad_norm" in sds_out:
+                metrics["sds_grad_norm"] = sds_out["grad_norm"]
+
+        # Capacity-truncation canaries: splats dropped past max_per_tile
+        # (the farthest in their tile) and footprint-capped surfels.  The
+        # normal pair composites from one binning, so it counts once.
+        ov = gen["overflow"].reshape(-1, 2).sum(0) + gt["overflow"]
+        if has_normals:
+            ov = ov + gt_nF["overflow"]
+        metrics["raster_dropped"] = ov[0].to(torch.float32)
+        metrics["raster_capped"] = ov[1].to(torch.float32)
+        metrics["loss"] = loss
+        aux = {"gen": gen, "gen_comp_rgb": comp_rgb, "gt": gt}
+        if has_normals:
+            aux["gt_normal_F"] = gt_nF
+            if use_nB:
+                aux["gt_normal_B"] = gt_nB
+        return loss, metrics, aux
+
+    def train_step(state: TrainState, batch: Dict, draws: Dict):
+        state.opt.zero_grad()
+        loss, metrics, _ = loss_fn(state.params, state.bg_params, batch, draws, state.step)
+        loss.backward()
+        # The background MLP is not optimised (the reference builds its
+        # optimizer but never returns it).
+        state.opt.step()
+        state.step += 1
+        return state, {k: v.detach() for k, v in metrics.items()}
+
+    train_step.loss_fn = loss_fn
+    return train_step
+
+
+def make_gt_batch(ds, model: AvatarModel, frame_idx: int, device="cuda") -> Dict:
+    """The per-frame GT batch (tensors on ``device`` and ``Camera``s) the
+    step consumes; ``frame_idx`` stays a Python int."""
+    H, W = ds.image_size
+    fov = ds.frame_fovs(frame_idx)
+    c2w = torch.as_tensor(np.asarray(ds.gt_c2w(frame_idx), np.float32), device=device)
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=device)
+
+    # GT RGB camera: principal point through prcppoint, projection without
+    # cxcy (``gaussian_batch_renderer.py:29-37, 59-83``).
+    gt_cam = camera_from_c2w(
+        c2w, t(fov["fovx"]), t(fov["fovy"]), znear=0.1, zfar=100.0,
+        prcppoint=t([fov["cx"] / W, fov["cy"] / H]),
+    )
+    # Normal cameras: principal point inside the projection, prcp (.5, .5).
+    nres = ds.normal_F.shape[1] if ds.normal_F.size else ds.images_crop.shape[1]
+    normal_cam = camera_from_c2w(
+        c2w, t(fov["normal_fovx"]), t(fov["normal_fovy"]), znear=0.1, zfar=100.0,
+        cxcy=(t(fov["normal_cx"]), t(fov["normal_cy"])), img_wh=(nres, nres),
+    )
+    batch = {
+        "frame_idx": int(frame_idx),
+        "gt_rgb": t(ds.images[frame_idx]),
+        "gt_mask": t(ds.masks[frame_idx]),
+        "gt_cam": gt_cam,
+        "normal_cam": normal_cam,
+        "gt_rgb_crop": t(ds.images_crop[frame_idx]),
+        "gt_mask_crop": t(ds.masks_crop[frame_idx]),
+    }
+    if ds.normal_F.size:
+        batch["gt_normal_F"] = t(ds.normal_F[frame_idx])
+        batch["gt_normal_mask"] = t(ds.normal_mask[frame_idx])
+        if ds.normal_B.size:
+            batch["gt_normal_B"] = t(ds.normal_B[frame_idx])
+    return batch
