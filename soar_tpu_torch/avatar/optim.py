@@ -22,6 +22,7 @@ from typing import Callable, Dict, List
 
 import torch
 
+from ..core import spans
 from ..train.config import OptimConfig
 from .state import AvatarParams
 
@@ -110,6 +111,7 @@ class AvatarOptimizer:
     def zero_grad(self):
         self.adam.zero_grad(set_to_none=True)
 
+    @spans.spanned("soar.optim")
     @torch.no_grad()
     def step(self):
         for ps in self.groups.values():

@@ -16,6 +16,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..body.skinning import apply_point_mats, point_skinning_mats
+from ..core import spans
 from ..core.camera import Camera
 from ..core.transforms import quat_to_rotmat, rotmat_to_quat
 from ..field.attribute_field import attribute_field_apply
@@ -49,12 +50,14 @@ class RenderSettings:
 _PERMUTE_T = ((0.0, 0.0, 1.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
 
 
+@spans.spanned("soar.field")
 def query_attributes(params: AvatarParams, model: AvatarModel):
     """Query the canonical attribute field at the (detached) surfel
     positions — camera-independent, so one query serves every view."""
     return attribute_field_apply(params.field, params.xyz.detach())
 
 
+@spans.spanned("soar.pose")
 def posed_gaussians(
     params: AvatarParams,
     model: AvatarModel,
@@ -110,6 +113,7 @@ def posed_gaussians(
     return g_main, occ_colors
 
 
+@spans.spanned("soar.render", unit="view")
 def render_view(
     params: AvatarParams,
     model: AvatarModel,

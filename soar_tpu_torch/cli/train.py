@@ -298,7 +298,7 @@ def _train(args, yaml_cfg, guidance_from_yaml, dev, mesh):
     from ..train.config import TrainConfig
     from ..train.evaluate import evaluate
     from ..train.lpips import load_lpips, make_lpips_fn
-    from ..train.observe import MetricLogger, StepTimer, dump_debug_images, profile_trace
+    from ..train.observe import MetricLogger, dump_debug_images, profile_trace
     from ..train.trainer import (
         gt_stack_nbytes,
         init_train_state,
@@ -431,7 +431,6 @@ def _train(args, yaml_cfg, guidance_from_yaml, dev, mesh):
             lpips_fn=lpips_fn, split_sds=split_sds, **shard,
         )
         logger = MetricLogger(args.out, use_wandb=args.wandb) if writer else None
-        timer = StepTimer()
         generator = torch.Generator(device=dev).manual_seed(args.seed + st)
         rng = np.random.RandomState(args.seed + st)
 
@@ -470,43 +469,46 @@ def _train(args, yaml_cfg, guidance_from_yaml, dev, mesh):
                      if writer and args.trace_steps > 0 and st == 0 else None)
         if trace_ctx:
             trace_ctx.__enter__()
-        t0 = time.time()
+        t0 = t_log = time.time()
+        it_log = start_it
         for it in range(start_it, n_steps):
             frame = ds.train_idx[rng.randint(len(ds.train_idx))]
-            with timer.phase("batch"):
-                if gt_select is not None:
-                    batch = gt_select(gt_stack, gt_pos[frame])
+            if gt_select is not None:
+                batch = gt_select(gt_stack, gt_pos[frame])
+            else:
+                batch = batch_cache.get(frame)
+                if batch is None:
+                    batch = batch_cache[frame] = make_gt_batch(ds, model, frame, dev)
+                    if ip_table is not None:
+                        batch["ref_ip"] = ip_table[frame]
+                    if len(batch_cache) > 32:
+                        batch_cache.popitem(last=False)
                 else:
-                    batch = batch_cache.get(frame)
-                    if batch is None:
-                        batch = batch_cache[frame] = make_gt_batch(ds, model, frame, dev)
-                        if ip_table is not None:
-                            batch["ref_ip"] = ip_table[frame]
-                        if len(batch_cache) > 32:
-                            batch_cache.popitem(last=False)
-                    else:
-                        batch_cache.move_to_end(frame)
-            with timer.phase("step"):
-                draws = sample_step_draws(generator, cfg, latent_size=latent_size)
-                if split_sds and state.step > stage_cfg.sds_start:
-                    # Split SDS: the no-grad half (lite gen renders, VAE, the
-                    # UNet's x0 target) first; the step consumes its target.
-                    lat, c2w, sds_draws = step_fn.sds_prelude(state, batch, draws)
-                    ref = "gt_rgb_crop" if st == 1 else "gt_normal_F"
-                    batch = dict(batch, sds_target=guidance_fn.compute_target(
-                        lat, c2w, state.step, sds_draws, ref_rgb=batch.get(ref),
-                        ref_ip=batch.get("ref_ip")))
-                state, metrics = step_fn(state, batch, draws)
+                    batch_cache.move_to_end(frame)
+            draws = sample_step_draws(generator, cfg, latent_size=latent_size)
+            if split_sds and state.step > stage_cfg.sds_start:
+                # Split SDS: the no-grad half (lite gen renders, VAE, the
+                # UNet's x0 target) first; the step consumes its target.
+                lat, c2w, sds_draws = step_fn.sds_prelude(state, batch, draws)
+                ref = "gt_rgb_crop" if st == 1 else "gt_normal_F"
+                batch = dict(batch, sds_target=guidance_fn.compute_target(
+                    lat, c2w, state.step, sds_draws, ref_rgb=batch.get(ref),
+                    ref_ip=batch.get("ref_ip")))
+            state, metrics = step_fn(state, batch, draws)
             if trace_ctx and it + 1 == args.trace_steps:
                 trace_ctx.__exit__(None, None, None)
                 trace_ctx = None
             if not writer:
                 continue
             if it % args.log_every == 0 or it == n_steps - 1:
+                # The metrics' reads wait for the device, so the wall time
+                # since the last log line covers the steps between them.
                 m = {k: round(float(v), 5) for k, v in metrics.items()}
+                now = time.time()
                 m["stage"] = st
                 logger.log(global_step_base + it, m)
-                m["sec_per_step"] = round(timer.summary().get("step", 0.0), 3)
+                m["sec_per_step"] = round((now - t_log) / (it + 1 - it_log), 3)
+                t_log, it_log = now, it + 1
                 print(f"stage {st} it {it} ({time.time() - t0:.1f}s):", json.dumps(m))
             if args.save_every > 0 and it > 0 and it % args.save_every == 0:
                 save_avatar(os.path.join(args.out, f"stage{st}"), state.params, step=it)

@@ -11,6 +11,7 @@ from typing import Tuple
 
 import torch
 
+from ..core import spans
 from ..core.camera import Camera, focal_from_fov, ndc2pix
 from ..core.transforms import quat_to_rotmat
 from .types import GaussianInputs, Preprocessed, RasterConfig
@@ -101,6 +102,7 @@ def _local_homo(
     return jinv, grazing
 
 
+@spans.spanned("soar.raster.preprocess")
 def preprocess(
     g: GaussianInputs,
     camera: Camera,

@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core import spans
 from ..core.camera import Camera
 from .block_composite import composite_block
 from .composite import (
@@ -47,6 +48,7 @@ from .tilegrid import untile as _untile
 from .types import GaussianInputs, Preprocessed, RasterConfig, RenderOutputs
 
 
+@spans.spanned("soar.raster.sort")
 def bin_and_sort(pre: Preprocessed, image_size: Tuple[int, int], cfg: RasterConfig):
     """Duplicate surfels into per-tile slots and depth-sort within tiles.
 
@@ -144,6 +146,11 @@ def bin_and_sort(pre: Preprocessed, image_size: Tuple[int, int], cfg: RasterConf
     wide_fat = ((rect_max_x - rect_min_x) > S) | ((rect_max_y - rect_min_y) > S)
     capped = torch.sum(torch.where(in_fat, wide_fat, wide_small) & pre.valid)
     overflow = torch.stack([dropped, capped]).to(torch.int32)
+    if spans.on():
+        spans.count("raster.keys", key.numel())
+        spans.count("raster.keys_in_tiles", counts.sum())
+        spans.count("raster.dropped", overflow[0])
+        spans.count("raster.capped", overflow[1])
     return sorted_idx, starts, counts, (ntx, nty), overflow
 
 
@@ -318,14 +325,25 @@ def _rasterize_core(
     )
     if rows is not None:
         composite = _band_composite(composite, rows, ntx, nty)
-    slot_valid = _slot_valid(counts, K)
     C_ch = pre.colors.shape[-1]
-    packed = pack_surfels(pre)
+    with spans.span("soar.raster.gather"):
+        slot_valid = _slot_valid(counts, K)
+        packed = pack_surfels(pre)
 
-    def gather(reverse: bool):
-        return gather_slots(packed, sorted_idx, starts, counts, K, reverse)
+        def gather(reverse: bool):
+            return gather_slots(packed, sorted_idx, starts, counts, K, reverse)
 
-    pixf = tile_pixel_centres(tile_origins(ntx, nty, tile, dev), tile)
+        pixf = tile_pixel_centres(tile_origins(ntx, nty, tile, dev), tile)
+        # Every slot order the passes composite: the main pass's (reversed
+        # for a back-surface pass), the back pass's beside it, and the occ
+        # pass's, always ascending, with its colours.
+        gidx, g_main = gather(cfg.compose_reverse)
+        g_back = gather(True)[1] if also_back else None
+        g_front = g_main
+        if occ_colors is not None:
+            if cfg.compose_reverse:
+                gidx, g_front = gather(False)
+            occ_g = occ_colors[gidx]
 
     def untile(img_flat, ch):
         return _untile(img_flat, ch, ntx, nty, tile, H, W)
@@ -351,9 +369,10 @@ def _rasterize_core(
             parts.append(normals)
         parts.append(depths[..., None])
         attrs = torch.cat(parts, dim=-1)
-        accum, corr, t_final = composite(
-            xy, conic, opac, slot_valid, attrs, e, pixf, *composite_args
-        )
+        with spans.span("soar.composite"):
+            accum, corr, t_final = composite(
+                xy, conic, opac, slot_valid, attrs, e, pixf, *composite_args
+            )
         accum_color = accum[..., :C_ch]
         if cfg.surface:
             accum_normal = accum[..., C_ch:C_ch + 3]
@@ -372,16 +391,8 @@ def _rasterize_core(
             overflow=overflow,
         )
 
-    if also_back:
-        gidx, g_front = gather(False)
-        ref_out = composite_main(g_front)._replace(visible=pre.valid)
-        main_ret = (ref_out, composite_main(gather(True)[1]))
-    else:
-        gidx, g_front = gather(cfg.compose_reverse)
-        main_ret = ref_out = composite_main(g_front)._replace(visible=pre.valid)
-        if cfg.compose_reverse and occ_colors is not None:
-            # The occ pass is always front-to-back ascending: re-gather.
-            gidx, g_front = gather(False)
+    ref_out = composite_main(g_main)._replace(visible=pre.valid)
+    main_ret = (ref_out, composite_main(g_back)) if also_back else ref_out
     if occ_colors is None:
         return main_ret, None
 
@@ -391,12 +402,12 @@ def _rasterize_core(
     # keep their gradients, as in the JAX package.
     xy, conic, opac = g_front[..., _PACK_XY], g_front[..., _PACK_CONIC], g_front[..., _PACK_OPAC]
     front = g_front[..., _PACK_VIEW_DOT] <= -0.01
-    occ_g = occ_colors[gidx]
     Cb = occ_colors.shape[-1]
-    accum_b, _, t_final_b = composite(
-        xy.detach(), conic.detach(), opac, slot_valid & front, occ_g,
-        torch.zeros_like(xy), pixf, *composite_args,
-    )
+    with spans.span("soar.composite"):
+        accum_b, _, t_final_b = composite(
+            xy.detach(), conic.detach(), opac, slot_valid & front, occ_g,
+            torch.zeros_like(xy), pixf, *composite_args,
+        )
     Tb = torch.clamp_max(t_final_b, 1.0 - 1e-6)
     color_b = accum_b + Tb[..., None] * bg
     occ_out = RenderOutputs(

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from .. import resolve_device
+from ..core import spans
 
 _VGG16_CFG = (64, 64, "M", 128, 128, "M", 256, 256, 256, "M", 512, 512, 512, "M",
               512, 512, 512)
@@ -142,6 +143,7 @@ def make_lpips_fn(path: Optional[str] = None, dtype=torch.bfloat16,
     if net is None:
         return None
 
+    @spans.spanned("soar.lpips")
     def fn(a, b):
         return net(a[None], b[None])[0]
 

@@ -1,9 +1,9 @@
-"""Observability: step timing, metric logging, image dumps (port of
+"""Observability: traces, metric logging, image dumps (port of
 ``soar_tpu.train.observe``).
 
-- :class:`StepTimer`: rolling per-phase wall-clock means;
 - :func:`profile_trace`: a ``torch.profiler`` context that writes a Chrome
-  trace (``chrome://tracing``, Perfetto) of what runs inside it;
+  trace (``chrome://tracing``, Perfetto) of what runs inside it, with the
+  program's spans (:mod:`soar_tpu_torch.core.spans`);
 - :class:`MetricLogger`: one JSON line per logged step in
   ``<out>/metrics.jsonl``, and wandb when asked for and installed;
 - :func:`dump_debug_images`: the render / mask / normal / pred_normal /
@@ -18,43 +18,36 @@ import importlib.util
 import json
 import os
 import time
-from collections import defaultdict, deque
 from typing import Dict, Optional
 
 import numpy as np
 
 
-class StepTimer:
-    def __init__(self, window: int = 50):
-        self.window = window
-        self.times = defaultdict(lambda: deque(maxlen=window))
-
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        self.times[name].append(time.perf_counter() - t0)
-
-    def summary(self) -> Dict[str, float]:
-        return {k: float(np.mean(v)) for k, v in self.times.items() if len(v)}
-
-
 @contextlib.contextmanager
 def profile_trace(log_dir: str):
     """Profile the host and, where CUDA is available, the device while the
-    context is open; on exit write the Chrome trace to
-    ``<log_dir>/trace_<pid>_<time>.json``."""
+    context is open, with the program's spans on (each span a range, its
+    unit id among the range's inputs, recorded with the ops' shapes); on
+    exit write the Chrome trace to ``<log_dir>/trace_<pid>_<time>.json``
+    and the spans' counters, by name and span, to
+    ``<log_dir>/counters_<pid>_<time>.json``."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from ..core.spans import counters, tracing
 
     os.makedirs(log_dir, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield prof
-    prof.export_chrome_trace(
-        os.path.join(log_dir, f"trace_{os.getpid()}_{int(time.time())}.json"))
+    with profile(activities=activities, record_shapes=True) as prof:
+        with tracing():
+            yield prof
+        counts = counters()
+    tag = f"{os.getpid()}_{int(time.time())}"
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{tag}.json"))
+    with open(os.path.join(log_dir, f"counters_{tag}.json"), "w") as f:
+        json.dump(counts, f, indent=1)
 
 
 class MetricLogger:

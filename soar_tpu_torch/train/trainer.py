@@ -52,6 +52,7 @@ from ..avatar import state as S
 from ..avatar.optim import AvatarOptimizer, make_optimizer
 from ..avatar.renderer import RenderSettings, query_attributes, render_view
 from ..avatar.state import AvatarModel, AvatarParams
+from ..core import spans
 from ..core.camera import Camera, camera_from_c2w, get_ray_directions, get_rays
 from ..data.cameras import (
     CameraSampleConfig,
@@ -114,6 +115,7 @@ def gen_camera_config(cfg: TrainConfig, nv: int) -> CameraSampleConfig:
     )
 
 
+@spans.spanned("soar.draws")
 def sample_step_draws(
     generator: torch.Generator, cfg: TrainConfig, n_views: Optional[int] = None,
     latent_size: Optional[int] = None,
@@ -319,91 +321,92 @@ def make_train_step(
             return scheduled(v, step)
 
         # ---- explicit losses (``gaussian_surfel_mvdream.py:259-460``)
-        m_gt = batch["gt_mask"][..., None]
-        mask = batch["gt_mask"] > 1e-5
-        gt_rgb_blended = batch["gt_rgb"] * m_gt + rand_bg * (1.0 - m_gt)
-        loss_recon = 0.8 * L.masked_l1(gt["render"], batch["gt_rgb"], mask) + 0.2 * (
-            1.0 - L.ssim(gt["render"], gt_rgb_blended)
-        )
-        loss = C(w.recon) * loss_recon
-        metrics["loss_recon"] = loss_recon
+        with spans.span("soar.losses"):
+            m_gt = batch["gt_mask"][..., None]
+            mask = batch["gt_mask"] > 1e-5
+            gt_rgb_blended = batch["gt_rgb"] * m_gt + rand_bg * (1.0 - m_gt)
+            loss_recon = 0.8 * L.masked_l1(gt["render"], batch["gt_rgb"], mask) + 0.2 * (
+                1.0 - L.ssim(gt["render"], gt_rgb_blended)
+            )
+            loss = C(w.recon) * loss_recon
+            metrics["loss_recon"] = loss_recon
 
-        loss_mask = torch.mean(torch.abs(gt["mask"] - batch["gt_mask"]))
-        loss = loss + C(w.mask) * loss_mask
-        metrics["loss_mask"] = loss_mask
+            loss_mask = torch.mean(torch.abs(gt["mask"] - batch["gt_mask"]))
+            loss = loss + C(w.mask) * loss_mask
+            metrics["loss_mask"] = loss_mask
 
-        if has_normals:
-            nmask = batch["gt_normal_mask"] > 1e-5
-            loss_nF = 0.2 * L.cos_loss(gt_nF["normal"], batch["gt_normal_F"], nmask, thrsh=0.0)
-            if use_nB:
-                loss_nB = 0.2 * L.cos_loss(gt_nB["normal"], batch["gt_normal_B"], nmask,
-                                           thrsh=0.0)
-            if lpips_fn is not None:
-                # LPIPS of the masked normals, shifted to [-1, 1], inside the
-                # normal terms (``gaussian_surfel_mvdream.py:342-393``), with
-                # the reference's quirk: the front pass multiplies by the raw
-                # alpha mask, the back pass by the binarised one.
-                nm_raw = batch["gt_normal_mask"][..., None]
-                nm_bin = nmask[..., None].to(nm_raw.dtype)
-
-                def nlp(pred01, gt01, nm):
-                    return lpips_fn((pred01 * nm - 0.5) * 2.0, (gt01 * nm - 0.5) * 2.0)
-
-                loss_nF = loss_nF + nlp(gt_nF["normal"], batch["gt_normal_F"], nm_raw)
+            if has_normals:
+                nmask = batch["gt_normal_mask"] > 1e-5
+                loss_nF = 0.2 * L.cos_loss(gt_nF["normal"], batch["gt_normal_F"], nmask, thrsh=0.0)
                 if use_nB:
-                    loss_nB = loss_nB + nlp(gt_nB["normal"], batch["gt_normal_B"], nm_bin)
-            loss = loss + C(w.normal_F) * loss_nF
-            metrics["loss_normal_F"] = loss_nF
-            if use_nB:
-                loss = loss + C(w.normal_B) * loss_nB
-                metrics["loss_normal_B"] = loss_nB
-                # Nested in the reference's normal_B branch (``:394-399``).
-                loss_nmask = torch.mean(torch.abs(gt_nF["mask"] - batch["gt_normal_mask"]))
-                loss = loss + C(w.normal_mask) * loss_nmask
-                metrics["loss_normal_mask"] = loss_nmask
+                    loss_nB = 0.2 * L.cos_loss(gt_nB["normal"], batch["gt_normal_B"], nmask,
+                                               thrsh=0.0)
+                if lpips_fn is not None:
+                    # LPIPS of the masked normals, shifted to [-1, 1], inside the
+                    # normal terms (``gaussian_surfel_mvdream.py:342-393``), with
+                    # the reference's quirk: the front pass multiplies by the raw
+                    # alpha mask, the back pass by the binarised one.
+                    nm_raw = batch["gt_normal_mask"][..., None]
+                    nm_bin = nmask[..., None].to(nm_raw.dtype)
 
-        # VGG/LPIPS RGB term (``gaussian_surfel_mvdream.py:401-410``), gated
-        # on its own weight only: the reference nests it under
-        # lambda_normal_B > 0, which the configs that enable it set to 0.
-        if lpips_fn is not None and (isinstance(w.vgg, (tuple, list)) or float(w.vgg) != 0.0):
-            loss_vgg = lpips_fn((gt["render"] - 0.5) * 2.0, (gt_rgb_blended - 0.5) * 2.0)
-            loss = loss + C(w.vgg) * loss_vgg
-            metrics["loss_vgg"] = loss_vgg
+                    def nlp(pred01, gt01, nm):
+                        return lpips_fn((pred01 * nm - 0.5) * 2.0, (gt01 * nm - 0.5) * 2.0)
 
-        # occ supervision: visible (masked) pixels should predict occ -> 1.
-        occ_gt = gt["occ"][..., 0]
-        m = mask.to(occ_gt.dtype)
-        loss_occ = torch.sum((1.0 - occ_gt) * m) / torch.clamp_min(torch.sum(m), 1.0)
-        loss = loss + C(w.occ) * loss_occ
-        metrics["loss_occ"] = loss_occ
+                    loss_nF = loss_nF + nlp(gt_nF["normal"], batch["gt_normal_F"], nm_raw)
+                    if use_nB:
+                        loss_nB = loss_nB + nlp(gt_nB["normal"], batch["gt_normal_B"], nm_bin)
+                loss = loss + C(w.normal_F) * loss_nF
+                metrics["loss_normal_F"] = loss_nF
+                if use_nB:
+                    loss = loss + C(w.normal_B) * loss_nB
+                    metrics["loss_normal_B"] = loss_nB
+                    # Nested in the reference's normal_B branch (``:394-399``).
+                    loss_nmask = torch.mean(torch.abs(gt_nF["mask"] - batch["gt_normal_mask"]))
+                    loss = loss + C(w.normal_mask) * loss_nmask
+                    metrics["loss_normal_mask"] = loss_nmask
 
-        # Normal consistency: rendered vs depth-derived normals; the gen
-        # views' term joins after sds_start.
-        loss_nc = L.cos_loss(gt["pred_normal"], gt["normal"], thrsh=np.pi / 10000.0)
-        gen_nc = L.cos_loss(gen["pred_normal"], gen["normal"], thrsh=np.pi / 10000.0)
-        after_sds = float(step > stage.sds_start)
-        loss_nc = (loss_nc + after_sds * gen_nc) / (1.0 + after_sds)
-        nc_w = C(w.normal_consistency) + 0.1 * min(2.0 * step / 2000.0, 1.0)
-        loss = loss + nc_w * loss_nc
-        metrics["loss_normal_consistency"] = loss_nc
+            # VGG/LPIPS RGB term (``gaussian_surfel_mvdream.py:401-410``), gated
+            # on its own weight only: the reference nests it under
+            # lambda_normal_B > 0, which the configs that enable it set to 0.
+            if lpips_fn is not None and (isinstance(w.vgg, (tuple, list)) or float(w.vgg) != 0.0):
+                loss_vgg = lpips_fn((gt["render"] - 0.5) * 2.0, (gt_rgb_blended - 0.5) * 2.0)
+                loss = loss + C(w.vgg) * loss_vgg
+                metrics["loss_vgg"] = loss_vgg
 
-        loss_curv = torch.mean(torch.abs(gen["curv"]))
-        loss = loss + C(w.curv) * loss_curv
-        metrics["loss_curv"] = loss_curv
+            # occ supervision: visible (masked) pixels should predict occ -> 1.
+            occ_gt = gt["occ"][..., 0]
+            m = mask.to(occ_gt.dtype)
+            loss_occ = torch.sum((1.0 - occ_gt) * m) / torch.clamp_min(torch.sum(m), 1.0)
+            loss = loss + C(w.occ) * loss_occ
+            metrics["loss_occ"] = loss_occ
 
-        if use_explicit:
-            scales_mean = torch.mean(S.get_scaling(params))
-        else:
-            scales_mean = torch.mean(attrs["scales"])
-        loss = loss + C(w.scales) * scales_mean
-        metrics["loss_scales"] = scales_mean
+            # Normal consistency: rendered vs depth-derived normals; the gen
+            # views' term joins after sds_start.
+            loss_nc = L.cos_loss(gt["pred_normal"], gt["normal"], thrsh=np.pi / 10000.0)
+            gen_nc = L.cos_loss(gen["pred_normal"], gen["normal"], thrsh=np.pi / 10000.0)
+            after_sds = float(step > stage.sds_start)
+            loss_nc = (loss_nc + after_sds * gen_nc) / (1.0 + after_sds)
+            nc_w = C(w.normal_consistency) + 0.1 * min(2.0 * step / 2000.0, 1.0)
+            loss = loss + nc_w * loss_nc
+            metrics["loss_normal_consistency"] = loss_nc
 
-        # eps-safe norm: at init xyz == original_pos, where the exact L2
-        # norm's gradient is NaN.
-        dvec = params.xyz - model.original_pos
-        loss_delta = torch.mean(torch.sqrt(torch.sum(dvec * dvec, -1) + 1e-12))
-        loss = loss + C(w.delta) * loss_delta
-        metrics["loss_delta"] = loss_delta
+            loss_curv = torch.mean(torch.abs(gen["curv"]))
+            loss = loss + C(w.curv) * loss_curv
+            metrics["loss_curv"] = loss_curv
+
+            if use_explicit:
+                scales_mean = torch.mean(S.get_scaling(params))
+            else:
+                scales_mean = torch.mean(attrs["scales"])
+            loss = loss + C(w.scales) * scales_mean
+            metrics["loss_scales"] = scales_mean
+
+            # eps-safe norm: at init xyz == original_pos, where the exact L2
+            # norm's gradient is NaN.
+            dvec = params.xyz - model.original_pos
+            loss_delta = torch.mean(torch.sqrt(torch.sum(dvec * dvec, -1) + 1e-12))
+            loss = loss + C(w.delta) * loss_delta
+            metrics["loss_delta"] = loss_delta
 
         # ---- SDS guidance (``gaussian_surfel_mvdream.py:180-254``): the
         # occ-weighted hook exp(-3 occ) on the guidance input, gated on
@@ -411,34 +414,36 @@ def make_train_step(
         # RGB composite in stage 1, the rendered normals in stage 0, with
         # that stage's reference image and the first view's background.
         if guidance_fn is not None and step > stage.sds_start:
-            if "sds" not in draws:
-                raise ValueError("a guided step needs the SDS draws: sample_step_draws(..., "
-                                 "latent_size=guidance_fn.latent_size)")
-            inp = comp_rgb if stage.training_stage == 1 else gen["normal"]
-            if isinstance(w.occ, (tuple, list)) or float(w.occ) != 0.0:
-                inp = scale_gradient(inp, torch.exp(-3.0 * gen["occ"].detach()))
-            ref = ("gt_rgb_crop", "gt_mask_crop") if stage.training_stage == 1 else (
-                "gt_normal_F", "gt_normal_mask")
-            if split_sds:
-                # The gradient half; the no-grad target came from the prelude.
-                if "sds_target" not in batch:
-                    raise ValueError("a split-SDS step needs batch['sds_target'] "
-                                     "(train_step.sds_prelude, then guidance_fn.compute_target)")
-                lat = guidance_fn.encode_latents(inp, draws["sds"]["vae_eps"])
-                diff = lat - batch["sds_target"].detach()
-                V = lat.shape[0]
-                # /V: the reference's grad_norm is the autograd of the
-                # /V-scaled recon loss.
-                sds_out = {"loss_sds": 0.5 * torch.sum(diff**2) / V,
-                           "grad_norm": torch.linalg.norm(diff.detach()) / V}
-            else:
-                sds_out = guidance_fn(inp, draws["c2w"], step, draws["sds"],
-                                      ref_rgb=batch.get(ref[0]), ref_mask=batch.get(ref[1]),
-                                      comp_bg=bg_rgb[0], ref_ip=batch.get("ref_ip"))
-            loss = loss + C(w.sds) * sds_out["loss_sds"]
-            metrics["loss_sds"] = sds_out["loss_sds"]
-            if "grad_norm" in sds_out:
-                metrics["sds_grad_norm"] = sds_out["grad_norm"]
+            with spans.span("soar.guidance"):
+                if "sds" not in draws:
+                    raise ValueError("a guided step needs the SDS draws: sample_step_draws(..., "
+                                     "latent_size=guidance_fn.latent_size)")
+                inp = comp_rgb if stage.training_stage == 1 else gen["normal"]
+                if isinstance(w.occ, (tuple, list)) or float(w.occ) != 0.0:
+                    inp = scale_gradient(inp, torch.exp(-3.0 * gen["occ"].detach()))
+                ref = ("gt_rgb_crop", "gt_mask_crop") if stage.training_stage == 1 else (
+                    "gt_normal_F", "gt_normal_mask")
+                if split_sds:
+                    # The gradient half; the no-grad target came from the prelude.
+                    if "sds_target" not in batch:
+                        raise ValueError("a split-SDS step needs batch['sds_target'] "
+                                         "(train_step.sds_prelude, then "
+                                         "guidance_fn.compute_target)")
+                    lat = guidance_fn.encode_latents(inp, draws["sds"]["vae_eps"])
+                    diff = lat - batch["sds_target"].detach()
+                    V = lat.shape[0]
+                    # /V: the reference's grad_norm is the autograd of the
+                    # /V-scaled recon loss.
+                    sds_out = {"loss_sds": 0.5 * torch.sum(diff**2) / V,
+                               "grad_norm": torch.linalg.norm(diff.detach()) / V}
+                else:
+                    sds_out = guidance_fn(inp, draws["c2w"], step, draws["sds"],
+                                          ref_rgb=batch.get(ref[0]), ref_mask=batch.get(ref[1]),
+                                          comp_bg=bg_rgb[0], ref_ip=batch.get("ref_ip"))
+                loss = loss + C(w.sds) * sds_out["loss_sds"]
+                metrics["loss_sds"] = sds_out["loss_sds"]
+                if "grad_norm" in sds_out:
+                    metrics["sds_grad_norm"] = sds_out["grad_norm"]
 
         # Capacity-truncation canaries: splats dropped past max_per_tile
         # (the farthest in their tile) and footprint-capped surfels.  The
@@ -456,10 +461,12 @@ def make_train_step(
                 aux["gt_normal_B"] = gt_nB
         return loss, metrics, aux
 
+    @spans.spanned("soar.step", unit="step")
     def train_step(state: TrainState, batch: Dict, draws: Dict):
         state.opt.zero_grad()
         loss, metrics, _ = loss_fn(state.params, state.bg_params, batch, draws, state.step)
-        loss.backward()
+        with spans.span("soar.backward"):
+            loss.backward()
         if mesh_sharder is not None:
             mesh_sharder.average_gradients(state.params)
         # The background MLP is not optimised (the reference builds its
@@ -486,6 +493,7 @@ def make_train_step(
     return train_step
 
 
+@spans.spanned("soar.batch")
 def make_gt_batch(ds, model: AvatarModel, frame_idx: int, device="cuda") -> Dict:
     """The per-frame GT batch (tensors on ``device`` and ``Camera``s) the
     step consumes; ``frame_idx`` stays a Python int."""
@@ -568,6 +576,7 @@ def make_gt_batch_stack(ds, model: AvatarModel, frames, store_u8: bool = False,
                                          for f in frames]).to(device)
     u8_keys = tuple(k for k in _GT_U8_KEYS if store_u8 and k in stacked)
 
+    @spans.spanned("soar.batch")
     def select(stacked, pos: int) -> Dict:
         out = {}
         for k, v in stacked.items():

@@ -295,10 +295,13 @@ def test_registry_names_match_jax():
 
 def test_train_cli_trace_and_wandb_without_wandb(tmp_path, monkeypatch, capsys):
     """``--config`` (stage 0 only), ``--trace-steps 1`` writes a Chrome
-    trace under <out>/trace, and ``--wandb`` without wandb installed says
-    so and still writes metrics.jsonl (wandb is hidden from the import
-    machinery, whether installed or not).  The avatar's field is narrowed
-    (4 levels of 2^10 rows) so the CPU distils it in seconds."""
+    trace under <out>/trace with the program's spans, the step's among
+    them, and the spans' counters beside it, and ``--wandb`` without wandb
+    installed says so and still writes metrics.jsonl (wandb is hidden from
+    the import machinery, whether installed or not); each log line's
+    ``sec_per_step`` is the wall time since the last one.  The avatar's
+    field is narrowed (4 levels of 2^10 rows) so the CPU distils it in
+    seconds."""
     import importlib.util
 
     from soar_tpu_torch.avatar import state as tstate
@@ -326,7 +329,17 @@ def test_train_cli_trace_and_wandb_without_wandb(tmp_path, monkeypatch, capsys):
     assert [(r["step"], r["stage"]) for r in rows] == [(0, 0), (1, 0)]
     assert os.path.exists(os.path.join(out, "stage0", "avatar.pt"))
     assert not os.path.exists(os.path.join(out, "stage1"))
-    traces = glob.glob(os.path.join(out, "trace", "*.json"))
+    logged = [json.loads(line.split(": ", 1)[1]) for line in text.splitlines()
+              if line.startswith("stage 0 it ")]
+    assert len(logged) == 2 and all(m["sec_per_step"] > 0 for m in logged)
+    traces = glob.glob(os.path.join(out, "trace", "trace_*.json"))
     assert len(traces) == 1
     with open(traces[0]) as f:
-        assert json.load(f)["traceEvents"]
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"soar.step", "soar.render", "soar.field", "soar.backward", "soar.optim"} <= names
+    steps = [e for e in events if e.get("name") == "soar.step"]
+    assert len(steps) == 1 and "step 0" in json.dumps(steps[0]["args"])
+    (counts,) = glob.glob(os.path.join(out, "trace", "counters_*.json"))
+    with open(counts) as f:
+        assert sum(json.load(f)["raster.keys"].values()) > 0
