@@ -2995,7 +2995,8 @@ def run_reference_import(device, d):
     check(len(rows) == REF_STEPS and all(np.isfinite(r["loss"]) for r in rows)
           and all(np.isfinite(r["loss_sds"]) for r in rows[1:]) and "loss_sds" not in rows[0],
           f"reference import: metrics rows {rows}")
-    traces = glob.glob(os.path.join(out_dir, "trace", "*.json"))
+    # The trace directory also holds the spans' counters_*.json.
+    traces = glob.glob(os.path.join(out_dir, "trace", "trace_*.json"))
     check(len(traces) == 1 and os.path.getsize(traces[0]) > 0,
           f"reference import: --trace-steps 1 wrote {traces}")
     # Step 0 runs under the trace and step 1 is the first guided step (its

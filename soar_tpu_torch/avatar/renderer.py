@@ -6,6 +6,10 @@ matrices, query the attribute field for colors/scales, rasterize a main
 pass plus a front-face-culled occlusion pass, and post-process normals and
 curvature.  ``both_faces`` renders the front and back surfaces (plus the
 shared occ pass) from one preprocess and sort.
+
+A view rendered on CUDA without autograd is replayed from two CUDA graphs
+around its composite launches (:mod:`soar_tpu_torch.avatar.view_graph`);
+every other call runs the same three phases eagerly.
 """
 
 from __future__ import annotations
@@ -15,15 +19,18 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..body.model import smplx_forward
 from ..body.skinning import apply_point_mats, point_skinning_mats
 from ..core import spans
 from ..core.camera import Camera
+from ..core.constants import constant
 from ..core.transforms import quat_to_rotmat, rotmat_to_quat
 from ..field.attribute_field import attribute_field_apply
 from ..render.postprocess import depth2normal, normal2curv
-from ..render.tiled import rasterize, rasterize_front_back, rasterize_with_occ
+from ..render.tiled import Passes, composite_passes, raster_passes
 from ..render.types import GaussianInputs, RasterConfig
 from . import state as S
+from . import view_graph
 from .state import AvatarModel, AvatarParams
 
 
@@ -48,6 +55,8 @@ class RenderSettings:
 # Axis permutation "+z,+x,+y" applied to gen-view points: points transform
 # as x @ T and frames as T^T @ R.
 _PERMUTE_T = ((0.0, 0.0, 1.0), (1.0, 0.0, 0.0), (0.0, 1.0, 0.0))
+# The y/z flip of a view-space normal.
+_FLIP = (1.0, -1.0, -1.0)
 
 
 @spans.spanned("soar.field")
@@ -68,12 +77,17 @@ def posed_gaussians(
 ) -> Tuple[GaussianInputs, torch.Tensor]:
     """LBS-pose the avatar for one frame and assemble the rasterizer inputs.
     Returns ``(GaussianInputs, occ_colors)``."""
+    fp = S.frame_params(model, frame_idx, settings.gen_view, smpl_override)
+    return _posed(params, model, fp, settings, attrs)
+
+
+def _posed(params, model, fp, settings, attrs):
+    """:func:`posed_gaussians` from the frame's SMPL parameters ``fp``
+    (:func:`soar_tpu_torch.avatar.state.frame_params`)."""
     points = params.xyz
     rot = S.get_rotation(params)
 
-    live_A = S.live_affines(
-        model, frame_idx, zero_root=settings.gen_view, override=smpl_override
-    )
+    live_A = smplx_forward(model.body, fp).A[0]
     pt_mats = point_skinning_mats(model.skin, live_A)
 
     if attrs is None:
@@ -88,7 +102,7 @@ def posed_gaussians(
     R_surf = quat_to_rotmat(rot)
     R_out = pt_mats[..., :3, :3] @ R_surf
     if settings.gen_view:
-        T = torch.tensor(_PERMUTE_T, dtype=posed.dtype, device=posed.device)
+        T = constant(_PERMUTE_T, posed.dtype, posed.device)
         posed = posed @ T
         R_out = T.T @ R_out
     rot_out = rotmat_to_quat(R_out)
@@ -113,27 +127,11 @@ def posed_gaussians(
     return g_main, occ_colors
 
 
-@spans.spanned("soar.render", unit="view")
-def render_view(
-    params: AvatarParams,
-    model: AvatarModel,
-    camera: Camera,
-    image_size: Tuple[int, int],
-    bg_color: torch.Tensor,
-    frame_idx: int,
-    settings: RenderSettings = RenderSettings(),
-    attrs: Optional[Dict[str, torch.Tensor]] = None,
-    smpl_override: Optional[Dict[str, torch.Tensor]] = None,
-    rows=None,
-) -> Dict[str, torch.Tensor]:
-    """One posed view's render dict (a ``(front, back)`` pair with
-    ``settings.both_faces``).  ``rows`` (a
-    :func:`soar_tpu_torch.parallel.row_sharder`) composites only this
-    rank's band of tile rows and gathers the bands before the post ops
-    (:mod:`soar_tpu_torch.render.tiled`)."""
-    g_main, occ_colors = posed_gaussians(
-        params, model, frame_idx, settings, attrs, smpl_override
-    )
+def _view_passes(params, model, settings, image_size, fp, camera, bg_color, attrs) -> Passes:
+    """A view up to its composites: the pose, the field query and the
+    rasterizer's front end."""
+    with spans.span("soar.pose"):
+        g_main, occ_colors = _posed(params, model, fp, settings, attrs)
     main_cfg = dataclasses.replace(
         settings.raster,
         render_front=False,
@@ -142,9 +140,18 @@ def render_view(
         # sharing the ascending sort with the occlusion pass.
         compose_reverse=not (settings.render_front or settings.both_faces),
     )
-    flip = torch.tensor([1.0, -1.0, -1.0], device=g_main.means3d.device)
+    return raster_passes(g_main, camera, image_size, bg_color, main_cfg,
+                         None if settings.lite else occ_colors, also_back=settings.both_faces)
 
-    def post(out, occ_out):
+
+def _view_outputs(settings, image_size, raster_out, camera):
+    """The render dict (a ``(front, back)`` pair with ``both_faces``) from
+    the rasterizer's ``(main, occ)``: the normals' flip and the post ops."""
+    main, occ_out = raster_out
+    dev = (main[0] if settings.both_faces else main).color.device
+    flip = constant(_FLIP, torch.get_default_dtype(), dev)
+
+    def post(out):
         mask = out.opac > 1e-5
         # Outside the mask keep the values but stop gradients.
         normal = torch.where(mask[..., None], out.normal, out.normal.detach())
@@ -176,13 +183,47 @@ def render_view(
     if settings.both_faces:
         # The occ image is the same for both faces (same camera, colors and
         # ascending order): computed once and shared.
-        front, back, occ_out = rasterize_front_back(
-            g_main, occ_colors, camera, image_size, bg_color, main_cfg, rows=rows
-        )
-        return post(front, occ_out), post(back, occ_out)
-    if settings.lite:
-        return post(rasterize(g_main, camera, image_size, bg_color, main_cfg, rows=rows), None)
-    out, occ_out = rasterize_with_occ(
-        g_main, occ_colors, camera, image_size, bg_color, main_cfg, rows=rows
-    )
-    return post(out, occ_out)
+        front, back = main
+        return post(front), post(back)
+    return post(main)
+
+
+@spans.spanned("soar.render", unit="view")
+def render_view(
+    params: AvatarParams,
+    model: AvatarModel,
+    camera: Camera,
+    image_size: Tuple[int, int],
+    bg_color: torch.Tensor,
+    frame_idx: int,
+    settings: RenderSettings = RenderSettings(),
+    attrs: Optional[Dict[str, torch.Tensor]] = None,
+    smpl_override: Optional[Dict[str, torch.Tensor]] = None,
+    rows=None,
+) -> Dict[str, torch.Tensor]:
+    """One posed view's render dict (a ``(front, back)`` pair with
+    ``settings.both_faces``).  ``rows`` (a
+    :func:`soar_tpu_torch.parallel.row_sharder`) composites only this
+    rank's band of tile rows and gathers the bands before the post ops
+    (:mod:`soar_tpu_torch.render.tiled`).
+
+    On CUDA, with autograd, autocast and tracing off, the composite kernel
+    and no ``rows``, the view is replayed from CUDA graphs
+    (:func:`soar_tpu_torch.avatar.view_graph.render`): the same phases, the
+    same values."""
+    fp = S.frame_params(model, frame_idx, settings.gen_view, smpl_override)
+    inputs = (fp, camera, bg_color, attrs)
+
+    def passes(fp, camera, bg_color, attrs):
+        return _view_passes(params, model, settings, image_size, fp, camera, bg_color, attrs)
+
+    def outputs(raster_out, camera):
+        return _view_outputs(settings, image_size, raster_out, camera)
+
+    if view_graph.eligible(params.xyz, inputs, settings.raster, rows):
+        return view_graph.render(params, model, (tuple(image_size), settings), inputs,
+                                 passes, outputs)
+    if torch.is_grad_enabled():
+        view_graph.grad_view()
+    p = passes(*inputs)
+    return outputs(p.finish(composite_passes(p, settings.raster, rows)), camera)

@@ -25,6 +25,7 @@ from .. import resolve_device
 from ..body.model import BodyModel, smplx_forward
 from ..body.skinning import SkinningData, make_skinning_data, mean_knn_sq_dist
 from ..body.template import init_qso_on_mesh, subdivide_n
+from ..core.constants import constant
 from ..core.transforms import quat_to_rotmat
 from ..field.attribute_field import AttributeField, AttributeFieldConfig, reset_field
 
@@ -135,8 +136,8 @@ def frame_params(
             out[k] = v[idx:idx + 1]
     if zero_root:
         out["global_orient"] = torch.zeros_like(out["global_orient"])
-        out["transl"] = torch.zeros_like(out["transl"]) + torch.tensor(
-            [0.0, 0.3, 0.0], device=out["transl"].device
+        out["transl"] = torch.zeros_like(out["transl"]) + constant(
+            (0.0, 0.3, 0.0), torch.get_default_dtype(), out["transl"].device
         )
     if override:
         for k, v in override.items():

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..core.constants import constant
 from ..core.transforms import batch_rodrigues, transform_mat
 
 
@@ -79,7 +80,8 @@ def lbs(
     v_posed = v_shaped + pose_offsets
 
     rel_joints = joints - torch.cat(
-        [torch.zeros_like(joints[:, :1]), joints[:, list(model.parents[1:])]],
+        [torch.zeros_like(joints[:, :1]),
+         joints[:, constant(tuple(model.parents[1:]), torch.int64, joints.device)]],
         dim=1,
     )
     local_T = transform_mat(rot_mats, rel_joints)  # [B, J, 4, 4]

@@ -30,7 +30,10 @@ call), ``soar.losses``, ``soar.lpips``, ``soar.guidance``,
 ``soar.backward`` and ``soar.optim``.  The counters:
 ``host_syncs``, ``raster.keys`` (the keys a sort sorts),
 ``raster.keys_in_tiles`` (those that land in a tile), ``raster.dropped``
-and ``raster.capped`` (the overflow canaries).
+and ``raster.capped`` (the overflow canaries).  A view rendered while
+tracing is on runs eagerly, never from the view graphs of
+:mod:`soar_tpu_torch.avatar.view_graph`, so its spans and counters read
+the same in every view.
 """
 
 from __future__ import annotations

@@ -8,6 +8,8 @@ from __future__ import annotations
 
 import torch
 
+from .constants import constant
+
 
 def safe_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
     """L2-normalize with a gradient that is finite at x == 0."""
@@ -133,7 +135,5 @@ def rotmat_to_rotvec(R: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
 def transform_mat(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """Pack rotation [..., 3, 3] and translation [..., 3] into [..., 4, 4]."""
     top = torch.cat([R, t[..., None]], dim=-1)
-    bottom = torch.tensor(
-        [0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device
-    ).expand(top.shape[:-2] + (1, 4))
+    bottom = constant((0.0, 0.0, 0.0, 1.0), R.dtype, R.device).expand(top.shape[:-2] + (1, 4))
     return torch.cat([top, bottom], dim=-2)

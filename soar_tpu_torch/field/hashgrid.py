@@ -15,6 +15,8 @@ from typing import Tuple
 
 import torch
 
+from ..core.constants import constant
+
 
 @dataclasses.dataclass(frozen=True)
 class HashGridConfig:
@@ -96,13 +98,13 @@ def hash_encode(
     F = cfg.features_per_level
     mask = cfg.table_size - 1
 
-    res = torch.tensor(cfg.resolutions(), dtype=torch.float32, device=dev)
+    res = constant(cfg.resolutions(), torch.float32, dev)
     scaled = p[:, None, :] * res[None, :, None]  # [N, L, 3]
     base_f = torch.floor(scaled)
     w = scaled - base_f
     base = base_f.to(torch.int64)
 
-    corners = torch.tensor(_CORNERS, dtype=torch.int64, device=dev)  # [8, 3]
+    corners = constant(_CORNERS, torch.int64, dev)  # [8, 3]
     cw = torch.prod(
         torch.where(
             corners[None, None, :, :] == 1,

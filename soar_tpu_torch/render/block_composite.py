@@ -170,10 +170,21 @@ def composite_block(
     _on_one_device("composite_block", args)
     # The packing stays outside the Function, so autograd splits the packed
     # gradient back onto xy, conic, opac, e and attrs.
-    feat = _pack(xy, conic, opac, valid, attrs, e).contiguous()
-    accum, corr, T = _Composite.apply(
-        feat, pixf.contiguous(), float(alpha_clamp), float(alpha_min), float(t_min)
-    )
+    feat, pixf = kernel_inputs(*args)
+    return kernel_outputs(*_Composite.apply(
+        feat, pixf, float(alpha_clamp), float(alpha_min), float(t_min)
+    ))
+
+
+def kernel_inputs(xy, conic, opac, valid, attrs, e, pixf):
+    """The forward kernel's inputs from :func:`composite_block`'s seven
+    tensor arguments: the packed features [NT, K, 9 + C] and the pixel
+    centres, both contiguous."""
+    return _pack(xy, conic, opac, valid, attrs, e).contiguous(), pixf.contiguous()
+
+
+def kernel_outputs(accum, corr, T):
+    """:func:`composite_block`'s outputs from the forward kernel's."""
     return accum.transpose(1, 2), corr, T
 
 

@@ -13,6 +13,12 @@ The back-surface pass walks each tile's ascending run farthest-first (the
 reversed gather), either alone (``compose_reverse``) or beside the front
 pass from one sort (:func:`rasterize_front_back`).
 
+A view runs in three phases: :func:`raster_passes` (preprocess to the
+composites' inputs), :func:`composite_passes` and ``Passes.finish`` (the
+output assembly), so that a caller can run the composites apart from the
+rest (:mod:`soar_tpu_torch.avatar.view_graph` replays the other two from
+CUDA graphs).
+
 ``rows`` (a :func:`soar_tpu_torch.parallel.row_sharder`) row-shards a view
 over the ranks of a process group: preprocess, binning, sort and gather
 run whole on every rank, each rank composites its band of tile rows (a
@@ -23,7 +29,7 @@ process composites every tile.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -240,7 +246,8 @@ def rasterize(
     rows=None,
 ) -> RenderOutputs:
     """Render one view.  Returns images shaped [H, W, ...]."""
-    return _rasterize_core(g, camera, image_size, bg_color, cfg, None, rows=rows)[0]
+    passes = raster_passes(g, camera, image_size, bg_color, cfg, None)
+    return passes.finish(composite_passes(passes, cfg, rows))[0]
 
 
 def rasterize_with_occ(
@@ -255,7 +262,8 @@ def rasterize_with_occ(
     """Main pass + front-face-culled occlusion pass sharing one preprocess /
     binning / sort / gather: the occ pass re-composites the gathered slots
     with the occ colors, back-facing splats suppressed."""
-    return _rasterize_core(g, camera, image_size, bg_color, cfg, occ_colors, rows=rows)
+    passes = raster_passes(g, camera, image_size, bg_color, cfg, occ_colors)
+    return passes.finish(composite_passes(passes, cfg, rows))
 
 
 def rasterize_front_back(
@@ -273,9 +281,8 @@ def rasterize_front_back(
     ``(front, back, occ)``."""
     if cfg.sort_descending or cfg.compose_reverse:
         raise ValueError("rasterize_front_back takes an ascending, forward config")
-    (front, back), occ = _rasterize_core(
-        g, camera, image_size, bg_color, cfg, occ_colors, also_back=True, rows=rows
-    )
+    passes = raster_passes(g, camera, image_size, bg_color, cfg, occ_colors, also_back=True)
+    (front, back), occ = passes.finish(composite_passes(passes, cfg, rows))
     return front, back, occ
 
 
@@ -297,7 +304,22 @@ def _band_composite(composite, rows, ntx: int, nty: int):
     return run
 
 
-def _rasterize_core(
+class Passes(NamedTuple):
+    """One view rasterized up to its composites: the seven tensor arguments
+    of each composite call (main pass, back pass, occ pass, in that order,
+    as present), the constants every call takes, the tile grid, and
+    ``finish``, which takes the calls' ``(accum, corr, T)`` in ``jobs``'
+    order and assembles ``(main, occ)`` as :func:`rasterize_with_occ`
+    returns them (``main`` a ``(front, back)`` pair with a back pass, ``occ``
+    None without an occ pass)."""
+
+    jobs: List[Tuple[torch.Tensor, ...]]
+    consts: Tuple[float, float, float]
+    grid: Tuple[int, int]
+    finish: Callable
+
+
+def raster_passes(
     g: GaussianInputs,
     camera: Camera,
     image_size: Tuple[int, int],
@@ -305,26 +327,19 @@ def _rasterize_core(
     cfg: RasterConfig,
     occ_colors: Optional[torch.Tensor],
     also_back: bool = False,
-    rows=None,
-):
+) -> Passes:
+    """Preprocess, binning, sort and gathers of one view, and the inputs of
+    its composites; :func:`composite_passes` runs the composites and
+    ``Passes.finish`` the rest."""
     H, W = image_size
     tile = cfg.tile
     K = cfg.max_per_tile
     dev = g.means3d.device
-    if cfg.composite == "kernel":
-        composite = composite_block
-    else:
-        cdt = torch.bfloat16 if cfg.composite_dtype == "bf16" else torch.float32
-
-        def composite(*args):
-            return composite_block_plain(*args, compute_dtype=cdt)
 
     pre = preprocess(g, camera, image_size, cfg)
     sorted_idx, starts, counts, (ntx, nty), overflow = bin_and_sort(
         pre, image_size, cfg
     )
-    if rows is not None:
-        composite = _band_composite(composite, rows, ntx, nty)
     C_ch = pre.colors.shape[-1]
     with spans.span("soar.raster.gather"):
         slot_valid = _slot_valid(counts, K)
@@ -349,10 +364,9 @@ def _rasterize_core(
         return _untile(img_flat, ch, ntx, nty, tile, H, W)
 
     bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
-    composite_args = (cfg.alpha_clamp, cfg.alpha_min, cfg.transmittance_min)
 
-    def composite_main(gf):
-        """The main-pass composite of one gathered slot order."""
+    def main_job(gf):
+        """The main-pass composite's arguments for one gathered slot order."""
         xy = gf[..., _PACK_XY]
         conic = gf[..., _PACK_CONIC]
         opac = gf[..., _PACK_OPAC]
@@ -369,10 +383,10 @@ def _rasterize_core(
             parts.append(normals)
         parts.append(depths[..., None])
         attrs = torch.cat(parts, dim=-1)
-        with spans.span("soar.composite"):
-            accum, corr, t_final = composite(
-                xy, conic, opac, slot_valid, attrs, e, pixf, *composite_args
-            )
+        return (xy, conic, opac, slot_valid, attrs, e, pixf)
+
+    def main_out(result):
+        accum, corr, t_final = result
         accum_color = accum[..., :C_ch]
         if cfg.surface:
             accum_normal = accum[..., C_ch:C_ch + 3]
@@ -391,30 +405,56 @@ def _rasterize_core(
             overflow=overflow,
         )
 
-    ref_out = composite_main(g_main)._replace(visible=pre.valid)
-    main_ret = (ref_out, composite_main(g_back)) if also_back else ref_out
-    if occ_colors is None:
-        return main_ret, None
+    jobs = [main_job(g_main)] + ([main_job(g_back)] if also_back else [])
+    if occ_colors is not None:
+        # Occlusion pass: back-facing splats culled, zero depth correction,
+        # and xy / conic detached as the reference detaches the occ-pass
+        # geometry (``diff_gaussian_rasterizer.py:281-291``); opacity and
+        # the occ colors keep their gradients, as in the JAX package.
+        xy, conic = g_front[..., _PACK_XY], g_front[..., _PACK_CONIC]
+        front = g_front[..., _PACK_VIEW_DOT] <= -0.01
+        jobs.append((xy.detach(), conic.detach(), g_front[..., _PACK_OPAC],
+                     slot_valid & front, occ_g, torch.zeros_like(xy), pixf))
 
-    # Occlusion pass: back-facing splats culled, zero depth correction, and
-    # xy / conic detached as the reference detaches the occ-pass geometry
-    # (``diff_gaussian_rasterizer.py:281-291``); opacity and the occ colors
-    # keep their gradients, as in the JAX package.
-    xy, conic, opac = g_front[..., _PACK_XY], g_front[..., _PACK_CONIC], g_front[..., _PACK_OPAC]
-    front = g_front[..., _PACK_VIEW_DOT] <= -0.01
-    Cb = occ_colors.shape[-1]
-    with spans.span("soar.composite"):
-        accum_b, _, t_final_b = composite(
-            xy.detach(), conic.detach(), opac, slot_valid & front, occ_g,
-            torch.zeros_like(xy), pixf, *composite_args,
+    def finish(results):
+        ref_out = main_out(results[0])._replace(visible=pre.valid)
+        main_ret = (ref_out, main_out(results[1])) if also_back else ref_out
+        if occ_colors is None:
+            return main_ret, None
+        accum_b, _, t_final_b = results[-1]
+        Tb = torch.clamp_max(t_final_b, 1.0 - 1e-6)
+        color_b = accum_b + Tb[..., None] * bg
+        occ_out = RenderOutputs(
+            color=untile(color_b, occ_colors.shape[-1]),
+            normal=ref_out.normal,
+            depth=ref_out.depth,
+            opac=untile((1.0 - Tb)[..., None], 1)[..., 0],
+            transmittance=untile(Tb[..., None], 1)[..., 0],
         )
-    Tb = torch.clamp_max(t_final_b, 1.0 - 1e-6)
-    color_b = accum_b + Tb[..., None] * bg
-    occ_out = RenderOutputs(
-        color=untile(color_b, Cb),
-        normal=ref_out.normal,
-        depth=ref_out.depth,
-        opac=untile((1.0 - Tb)[..., None], 1)[..., 0],
-        transmittance=untile(Tb[..., None], 1)[..., 0],
-    )
-    return main_ret, occ_out
+        return main_ret, occ_out
+
+    consts = (cfg.alpha_clamp, cfg.alpha_min, cfg.transmittance_min)
+    return Passes(jobs, consts, (ntx, nty), finish)
+
+
+def composite_passes(passes: Passes, cfg: RasterConfig, rows=None) -> List[Tuple]:
+    """Each of ``passes``' composite calls, in order: the kernel's wrapper
+    (:func:`composite_block`) or, under ``composite="plain"``, the plain
+    version in ``cfg.composite_dtype``; with ``rows``, on this rank's band
+    of tile rows."""
+    if cfg.composite == "kernel":
+        composite = composite_block
+    else:
+        cdt = torch.bfloat16 if cfg.composite_dtype == "bf16" else torch.float32
+
+        def composite(*args):
+            return composite_block_plain(*args, compute_dtype=cdt)
+
+    if rows is not None:
+        composite = _band_composite(composite, rows, *passes.grid)
+    results = []
+    for job in passes.jobs:
+        with spans.span("soar.composite"):
+            results.append(composite(*job, *passes.consts))
+    return results
+

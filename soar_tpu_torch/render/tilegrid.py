@@ -64,7 +64,7 @@ def quantize_depth(
     ``depth_bits`` bits, in float32 as the JAX package does.  The float ->
     integer cast follows XLA's (NaN -> 0, saturating at 2^32 - 1) and the
     clamp comes AFTER it: f32 rounds 2^db - 1 up to 2^db for db > 24."""
-    inf = torch.tensor(float("inf"), device=depth_key.device)
+    inf = float("inf")
     dmin = torch.min(torch.where(valid, depth_key, inf))
     dmax = torch.max(torch.where(valid, depth_key, -inf))
     span = torch.clamp_min(dmax - dmin, 1e-8)
