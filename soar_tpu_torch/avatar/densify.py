@@ -14,7 +14,9 @@ its Adam moments).  Dead slots are parked far outside every frustum
 (1e6) with opacity logits -10, so they composite nothing.  The functions
 that change the surfels write into the parameters in place, under
 ``no_grad``, outside the training step; none reads a device value on the
-host.
+host.  With tracing on (:mod:`soar_tpu_torch.core.spans`) a densify counts
+the slots it filled as ``densify.cloned`` and ``densify.split``, and a
+prune the surfels it took away as ``densify.pruned``, as device tensors.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..core import spans
 from ..core.transforms import quat_to_rotmat
 from .state import AvatarParams
 
@@ -95,11 +98,12 @@ def accumulate_stats(
 
 @torch.no_grad()
 def _scatter_into_dead(params: AvatarParams, state: DensifyState, src_mask: torch.Tensor,
-                       new_vals) -> DensifyState:
+                       new_vals, counter: str) -> DensifyState:
     """Write the rows of ``new_vals`` selected by ``src_mask`` into dead
     slots, the k-th source into the k-th dead slot in ascending index
     order; sources past the number of dead slots are dropped.  Updates
-    ``params`` in place and returns the state with the slots alive."""
+    ``params`` in place and returns the state with the slots alive; the
+    slots filled count as ``counter``."""
     C = state.alive.shape[0]
     dev = state.alive.device
     src_rank = torch.cumsum(src_mask.to(torch.int64), 0) - 1
@@ -117,6 +121,8 @@ def _scatter_into_dead(params: AvatarParams, state: DensifyState, src_mask: torc
         buf.index_copy_(0, dst, new_vals[name].to(p.dtype))
         p.copy_(buf[:C])
     used = torch.zeros((C + 1,), dtype=torch.bool, device=dev).index_fill_(0, dst, True)[:C]
+    if spans.on():
+        spans.count(counter, ok.sum())
     return state._replace(alive=state.alive | used)
 
 
@@ -157,7 +163,7 @@ def adaptive_densify(
 
     clone_mask = high_grad & (scales <= percent_dense * extent) & pre_mask
     state = _scatter_into_dead(params, state, clone_mask,
-                               {k: getattr(params, k) for k in _SURFEL_FIELDS})
+                               {k: getattr(params, k) for k in _SURFEL_FIELDS}, "densify.cloned")
 
     # Split: the reference prunes the parent and adds N=2 children; keeping
     # the parent as one child is the static-shape equivalent.
@@ -172,7 +178,7 @@ def adaptive_densify(
     new_scaling = params.scaling - math.log(1.6)
     split_vals = {k: getattr(params, k) for k in _SURFEL_FIELDS}
     split_vals.update(xyz=params.xyz + offset, scaling=new_scaling)
-    state = _scatter_into_dead(params, state, split_mask, split_vals)
+    state = _scatter_into_dead(params, state, split_mask, split_vals, "densify.split")
     params.scaling.copy_(torch.where(split_mask[:, None], new_scaling, params.scaling))
 
     z = torch.zeros_like(state.denom)
@@ -193,6 +199,8 @@ def adaptive_prune(
     s = torch.exp(params.scaling[:, 0])
     prune = ((opac < min_opacity) | (s > 0.5 * extent) | (s * s < 1e-8 * extent**2)
              | (state.denom == 0)) & state.alive
+    if spans.on():
+        spans.count("densify.pruned", prune.sum())
     params.xyz.copy_(torch.where(prune[:, None], 1e6, params.xyz))
     params.opacity.copy_(torch.where(prune[:, None], -10.0, params.opacity))
     return params, state._replace(alive=state.alive & ~prune)

@@ -14,6 +14,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from .constants import constant
+
 
 class Camera(NamedTuple):
     """Per-view camera tensors; image size travels separately as
@@ -29,7 +31,7 @@ class Camera(NamedTuple):
 
 def convert_pose(c2w: torch.Tensor) -> torch.Tensor:
     """Flip the y and z camera axes: ``C2W @ diag(1,-1,-1,1)``."""
-    flip = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=c2w.dtype, device=c2w.device)
+    flip = constant((1.0, -1.0, -1.0, 1.0), c2w.dtype, c2w.device)
     return c2w * flip[None, :]
 
 
@@ -103,7 +105,7 @@ def camera_from_c2w(
     P = projection_matrix(znear, zfar, fovx, fovy, cxcy=cxcy, img_wh=img_wh)
     full_proj = P @ w2c
     if prcppoint is None:
-        prcppoint = torch.tensor([0.5, 0.5], dtype=c2w.dtype, device=dev)
+        prcppoint = constant((0.5, 0.5), c2w.dtype, dev)
     return Camera(
         fovx=fovx,
         fovy=fovy,
@@ -165,5 +167,5 @@ def look_at_c2w(camera_position: torch.Tensor, center: torch.Tensor,
     up2 = unit(torch.linalg.cross(right, lookat, dim=-1))
     R = torch.stack([right, up2, -lookat], dim=-1)
     c2w = torch.cat([R, camera_position[..., :, None]], dim=-1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=c2w.dtype, device=c2w.device)
+    bottom = constant((0.0, 0.0, 0.0, 1.0), c2w.dtype, c2w.device)
     return torch.cat([c2w, bottom.expand(c2w.shape[:-2] + (1, 4))], dim=-2)

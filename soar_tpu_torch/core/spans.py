@@ -27,11 +27,15 @@ view), ``soar.pose`` (LBS and the surfel frames), ``soar.field`` (the
 attribute field's query), ``soar.raster.preprocess`` / ``.sort`` /
 ``.gather`` (the rasterizer's front end), ``soar.composite`` (one composite
 call), ``soar.losses``, ``soar.lpips``, ``soar.guidance``,
-``soar.backward`` and ``soar.optim``.  The counters:
-``host_syncs``, ``raster.keys`` (the keys a sort sorts),
-``raster.keys_in_tiles`` (those that land in a tile), ``raster.dropped``
-and ``raster.capped`` (the overflow canaries).  A view rendered while
-tracing is on runs eagerly, never from the view graphs of
+``soar.backward`` and ``soar.optim``; beside the steps, ``soar.densify``
+(a GaussianDreamer ``maintain`` that changes the surfels, re-skinning
+included).  The counters: ``host_syncs``, ``raster.keys`` (the keys a sort
+sorts), ``raster.keys_in_tiles`` (those that land in a tile),
+``raster.dropped`` and ``raster.capped`` (the overflow canaries), and
+``densify.cloned``, ``densify.split``, ``densify.pruned`` (the slots a
+densify filled by clone and by split, the surfels a prune took away) and
+``densify.alive`` (the surfels alive after a ``soar.densify``).  A view
+rendered while tracing is on runs eagerly, never from the view graphs of
 :mod:`soar_tpu_torch.avatar.view_graph`, so its spans and counters read
 the same in every view.
 """

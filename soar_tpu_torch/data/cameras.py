@@ -19,6 +19,7 @@ from typing import Tuple
 import torch
 
 from ..core.camera import look_at_c2w
+from ..core.constants import constant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -71,7 +72,7 @@ def multiview_cameras_from_uniforms(
         ],
         dim=-1,
     )
-    up = torch.tensor([0.0, 0.0, 1.0], device=dev).expand(n, 3)
+    up = constant((0.0, 0.0, 1.0), torch.get_default_dtype(), dev).expand(n, 3)
     return look_at_c2w(pos, torch.zeros_like(pos), up), fovy
 
 

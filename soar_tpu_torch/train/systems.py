@@ -16,6 +16,12 @@ statistics: it rewrites the surfel set, and runs on its own host-side
 cadence (``maintain``) on the static-capacity ``alive`` state.  Random
 draws are split from the step as in the trainer (:func:`sample_dreamer_draws`),
 so a test can hand it the JAX package's draws.
+
+With tracing on (:mod:`soar_tpu_torch.core.spans`) a loss step is one
+``soar.step`` unit, its views' ``soar.render`` spans nested in it beside
+``soar.guidance``, ``soar.losses``, ``soar.backward`` and ``soar.optim``;
+a ``maintain`` that changes the surfels is one ``soar.densify`` span (the
+re-skinning included) with the ``densify.*`` counters.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from ..avatar.optim import AvatarOptimizer
 from ..avatar.renderer import RenderSettings, render_view
 from ..avatar.state import AvatarModel, AvatarParams
 from ..body.skinning import knn_idw_weights
+from ..core import spans
 from ..core.camera import camera_from_c2w
 from ..data.cameras import CameraSampleConfig, sample_multiview_cameras
 from ..render.types import RasterConfig
@@ -114,31 +121,35 @@ def make_gaussiandreamer_step(
                 for v in range(c2w.shape[0])]
         render = torch.stack([o["render"] for o in outs])
 
-        sds = guidance_fn(render, c2w, step, draws.get("sds"))
+        with spans.span("soar.guidance"):
+            sds = guidance_fn(render, c2w, step, draws.get("sds"))
         if isinstance(sds, dict):
             sds = sds["loss_sds"]
         loss = scheduled(w.sds, step) * sds
         metrics = {"loss_sds": sds}
 
-        pos = torch.sqrt(torch.sum(params.xyz**2, -1) + 1e-12)
-        loss = loss + scheduled(w.position, step) * torch.mean(pos)
-        scaling = S.get_scaling(params)
-        loss = loss + scheduled(w.opacity, step) * torch.sum(
-            scaling[:, 0:1].detach() * S.get_opacity(params))
-        loss = loss + scheduled(w.scales, step) * torch.sum(scaling)
-        if isinstance(w.tv, (tuple, list)) or w.tv > 0:
-            loss = loss + scheduled(w.tv, step) * L.tv_loss(render)
+        with spans.span("soar.losses"):
+            pos = torch.sqrt(torch.sum(params.xyz**2, -1) + 1e-12)
+            loss = loss + scheduled(w.position, step) * torch.mean(pos)
+            scaling = S.get_scaling(params)
+            loss = loss + scheduled(w.opacity, step) * torch.sum(
+                scaling[:, 0:1].detach() * S.get_opacity(params))
+            loss = loss + scheduled(w.scales, step) * torch.sum(scaling)
+            if isinstance(w.tv, (tuple, list)) or w.tv > 0:
+                loss = loss + scheduled(w.tv, step) * L.tv_loss(render)
         metrics["loss"] = loss
         # Visibility over the views, the reference's ``radii > 0`` filter:
         # a surfel no view saw keeps denom 0 and is pruned.
         visible = torch.stack([o["visible"] for o in outs]).any(0)
         return loss, metrics, visible
 
+    @spans.spanned("soar.step", unit="step")
     def loss_step(params: AvatarParams, dstate: DensifyState, point_weights, draws,
                   step: int):
         opt.zero_grad()
         loss, metrics, visible = loss_fn(params, point_weights, draws, step)
-        loss.backward()
+        with spans.span("soar.backward"):
+            loss.backward()
         dstate = accumulate_stats(dstate, params.xyz.grad, params.scaling.grad,
                                   params.opacity.detach(), visible & dstate.alive)
         opt.step()
@@ -148,22 +159,26 @@ def make_gaussiandreamer_step(
                  generator: Optional[torch.Generator] = None,
                  noise: Optional[torch.Tensor] = None):
         """``update_states``' cadence (``surfel_base.py:1197-1230``)."""
-        changed = False
-        if cfg.densify_from <= step <= cfg.densify_until and step % cfg.densify_interval == 0:
-            params, dstate = adaptive_densify(
-                params, dstate, generator, grad_threshold=cfg.densify_grad_threshold,
-                extent=cfg.extent, surface=cfg.raster.surface, noise=noise)
-            changed = True
-        if cfg.prune_from <= step <= cfg.densify_until and step % cfg.prune_interval == 0:
-            params, dstate = adaptive_prune(params, dstate, min_opacity=cfg.min_opac_prune,
-                                            extent=cfg.extent)
-            changed = True
-        if changed:
+        densify = (cfg.densify_from <= step <= cfg.densify_until
+                   and step % cfg.densify_interval == 0)
+        prune = cfg.prune_from <= step <= cfg.densify_until and step % cfg.prune_interval == 0
+        if not (densify or prune):
+            return params, dstate, point_weights
+        with spans.span("soar.densify"):
+            if densify:
+                params, dstate = adaptive_densify(
+                    params, dstate, generator, grad_threshold=cfg.densify_grad_threshold,
+                    extent=cfg.extent, surface=cfg.raster.surface, noise=noise)
+            if prune:
+                params, dstate = adaptive_prune(params, dstate, min_opacity=cfg.min_opac_prune,
+                                                extent=cfg.extent)
             # The reference recomputes the weights every forward
             # (``utils/smpl.py:611``).
             with torch.no_grad():
                 point_weights = knn_idw_weights(params.xyz, model.skin.cano_vertices,
                                                 model.body.lbs_weights)
+            if spans.on():
+                spans.count("densify.alive", dstate.alive.sum())
         return params, dstate, point_weights
 
     loss_step.loss_fn = loss_fn
