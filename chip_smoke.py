@@ -830,9 +830,10 @@ def profile_view(render):
 
 def host_ops(fn):
     """Runs ``fn`` and returns the aten ops that produced a tensor on the
-    CPU, by name and count (device transfers and literal tensors that go
-    straight to the card are listed apart, and so are 0-element ``empty``
-    placeholders, which hold nothing and compute nothing: torch 2.11's
+    CPU, by name and count (device transfers, with the pinned staging copy
+    of an asynchronous one, and literal tensors that go straight to the
+    card are listed apart, and so are 0-element ``empty`` placeholders,
+    which hold nothing and compute nothing: torch 2.11's
     ``torch.utils.checkpoint`` makes two a checkpointed call), plus the
     number of aten ops and of host syncs (a device scalar read on the
     host)."""
@@ -841,7 +842,7 @@ def host_ops(fn):
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_flatten
 
-    transfers = ("lift_fresh", "_to_copy", "copy_", "detach", "alias")
+    transfers = ("lift_fresh", "_to_copy", "copy_", "detach", "alias", "_pin_memory")
 
     class Record(TorchDispatchMode):
         def __init__(self):

@@ -135,14 +135,19 @@ def frame_params(
         else:
             out[k] = v[idx:idx + 1]
     if zero_root:
-        out["global_orient"] = torch.zeros_like(out["global_orient"])
-        out["transl"] = torch.zeros_like(out["transl"]) + constant(
-            (0.0, 0.3, 0.0), torch.get_default_dtype(), out["transl"].device
-        )
+        out = root_zeroed(out)
     if override:
         for k, v in override.items():
             out[k] = torch.as_tensor(v, device=out[k].device).reshape(out[k].shape)
     return out
+
+
+def root_zeroed(fp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A frame's SMPL parameters as the gen views pose them: global_orient
+    zero and transl (0, 0.3, 0)."""
+    return dict(fp, global_orient=torch.zeros_like(fp["global_orient"]),
+                transl=torch.zeros_like(fp["transl"]) + constant(
+                    (0.0, 0.3, 0.0), torch.get_default_dtype(), fp["transl"].device))
 
 
 def live_affines(

@@ -114,16 +114,22 @@ class Policy:
             self.seen.popitem(last=False)
         return None, "eager"
 
+    def make_room(self):
+        """Drops the least recently used captures until one more fits, so
+        that a capture's memory is free before the next is made."""
+        while self.graphs and len(self.graphs) >= self.held:
+            self._drop(next(iter(self.graphs)))
+
     def hold(self, key: Hashable, entry):
         self.graphs[key] = entry
         self.used[key] = self.grad_views
         while len(self.graphs) > self.held:
             self._drop(next(iter(self.graphs)))
 
-    def grad_view(self):
-        """A view rendered with autograd on: drop the captures unused over
-        the last ``idle`` such views."""
-        self.grad_views += 1
+    def grad_view(self, n: int = 1):
+        """``n`` views rendered with autograd on: drop the captures unused
+        over the last ``idle`` such views."""
+        self.grad_views += n
         for key in [k for k in self.graphs if self.grad_views - self.used[k] > self.idle]:
             self._drop(key)
 
@@ -134,9 +140,9 @@ class Policy:
 _POLICY = Policy()
 
 
-def grad_view():
-    """Tells the policy that a view was rendered with autograd on."""
-    _POLICY.grad_view()
+def grad_view(n: int = 1):
+    """Tells the policy that ``n`` views were rendered with autograd on."""
+    _POLICY.grad_view(n)
 
 
 def _tensor_key(x):
@@ -151,18 +157,28 @@ def _tensor_key(x):
     return x
 
 
+def avatar_key(params, model) -> Hashable:
+    """Every tensor of ``params`` and ``model`` by address, and the field's
+    configuration: what a capture reads in place of the avatar."""
+    return (tuple(map(_tensor_key, params.parameters())),
+            tuple(map(_tensor_key, params.buffers())), params.field.cfg,
+            tuple(_tensor_key(getattr(model, f.name)) for f in dataclasses.fields(model)))
+
+
+def tf32_key() -> Hashable:
+    """The TF32 flags, which a captured matmul or convolution keeps."""
+    return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+
 def _key(params, model, statics: Hashable, inputs, leaves) -> Hashable:
     """What a captured view depends on beyond the values copied in: the
     image size and settings (``statics``), the copied inputs' structure,
-    shapes, strides and dtypes, every tensor of ``params`` and ``model``
-    by address, the field's configuration and the TF32 flags."""
+    shapes, strides and dtypes, the avatar (:func:`avatar_key`) and the
+    TF32 flags."""
     fp, _, _, attrs = inputs
     return (statics, params.xyz.device, tuple(fp), None if attrs is None else tuple(attrs),
             tuple((tuple(t.shape), t.stride(), t.dtype) for t in leaves),
-            tuple(map(_tensor_key, params.parameters())),
-            tuple(map(_tensor_key, params.buffers())), params.field.cfg,
-            tuple(_tensor_key(getattr(model, f.name)) for f in dataclasses.fields(model)),
-            torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+            avatar_key(params, model), tf32_key())
 
 
 def _front(passes_fn, inputs):

@@ -536,6 +536,10 @@ def _train(args, yaml_cfg, guidance_from_yaml, dev, mesh):
         if trace_ctx:
             trace_ctx.__exit__(None, None, None)
         logger.close()
+        if hasattr(step_fn, "replays"):  # absent where a caller wraps make_train_step
+            print(f"stage {st} step graphs: {step_fn.replays} steps replayed, "
+                  f"{step_fn.captures} captured, {step_fn.eager} eager as a key's first "
+                  f"(of {n_steps - start_it})")
         ckpt = os.path.join(args.out, f"stage{st}")
         save_avatar(ckpt, params, step=n_steps)
         print(f"saved {ckpt}")

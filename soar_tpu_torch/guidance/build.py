@@ -5,10 +5,14 @@ One function returns a closure with the trainer's contract
 (:func:`soar_tpu_torch.train.trainer.make_train_step`):
 
     guidance_fn(inp [V, H, W, 3], c2w [V, 4, 4], step, draws,
-                ref_rgb=None, ref_mask=None, comp_bg=None, ref_ip=None) -> dict
+                ref_rgb=None, ref_mask=None, comp_bg=None, ref_ip=None,
+                window=None) -> dict
 
 with ``draws`` the step's SDS draws (``u``, ``noise``, ``vae_eps``; see
-:func:`soar_tpu_torch.train.trainer.sample_step_draws`).  Weights come from
+:func:`soar_tpu_torch.train.trainer.sample_step_draws`) and ``window`` the
+timestep window at ``step`` as tensors, which the trainer makes from
+``guidance_fn.timestep_window(step)`` (a CUDA graph of the step reads it
+in place of the host's ``step``).  Weights come from
 a torch LDM checkpoint (``ckpt_path``: the UNet under
 ``model.diffusion_model.``, the VAE under ``first_stage_model.``, and for
 ImageDream the Resampler under ``image_proj_model.`` and the CLIP tower
@@ -35,6 +39,7 @@ in the modules.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Optional
 
@@ -51,7 +56,7 @@ from .clip_vit import (  # noqa: F401  (CLIPVisionConfig / ResamplerConfig re-ex
     make_image_embed_fn,
 )
 from .networks import MultiViewUNet, UNetConfig, VAEConfig, VAEEncoder
-from .sds import GuidanceConfig, MultiviewGuidance
+from .sds import GuidanceConfig, MultiviewGuidance, timestep_window
 
 
 @dataclasses.dataclass(frozen=True)
@@ -307,10 +312,10 @@ def build_guidance(
                                image_embed_fn=embed_ref)
 
         def guidance_fn(inp, c2w, step, draws, ref_rgb=None, ref_mask=None, comp_bg=None,
-                        ref_ip=None):
+                        ref_ip=None, window=None):
             ref_rgb, ref_ip = image_prompt(ref_rgb, ref_ip)
             return mv(inp, c2w, step, draws, ref_rgb=ref_rgb, ref_mask=ref_mask,
-                      comp_bg=comp_bg, ref_ip=ref_ip)
+                      comp_bg=comp_bg, ref_ip=ref_ip, window=window)
 
         def compute_target(latents, c2w, step, draws, ref_rgb=None, ref_ip=None):
             """Split SDS's no-grad half: the detached x0 target latents."""
@@ -327,6 +332,7 @@ def build_guidance(
         guidance_fn.release_image_encoder = release_image_encoder
         guidance_fn.encode_latents = mv.encode_latents
         guidance_fn.compute_target = compute_target
+        guidance_fn.timestep_window = functools.partial(timestep_window, gcfg)
         guidance_fn.for_stage = _assemble
         return guidance_fn
 

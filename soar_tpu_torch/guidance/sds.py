@@ -72,14 +72,26 @@ def _scheduled_f32(value: Scheduled, step: int) -> np.float32:
     return np.float32(v0) + np.float32(v1 - v0) * t
 
 
-def sample_timestep(cfg: GuidanceConfig, step: int, u: torch.Tensor) -> torch.Tensor:
-    """t = min_step + int(u * (max_step + 1 - min_step)) in float32, from the
-    annealed window at ``step`` (``imagedream_guidance.py:223-235``); a 0-d
-    int64 tensor on ``u``'s device."""
+def timestep_window(cfg: GuidanceConfig, step: int) -> Tuple[int, float]:
+    """The annealed timestep window at ``step``: ``(min_step, span)`` with
+    ``span = max_step + 1 - min_step``, evaluated on the host."""
     n = np.float32(cfg.num_train_timesteps)
     min_step = int(n * _scheduled_f32(cfg.min_step_percent, step))
     max_step = int(n * _scheduled_f32(cfg.max_step_percent, step))
-    span = float(max_step + 1 - min_step)
+    return min_step, float(max_step + 1 - min_step)
+
+
+def sample_timestep(cfg: GuidanceConfig, step: int, u: torch.Tensor,
+                    window: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """t = min_step + int(u * (max_step + 1 - min_step)) in float32, from the
+    annealed window at ``step`` (``imagedream_guidance.py:223-235``); a 0-d
+    int64 tensor on ``u``'s device.  ``window``: :func:`timestep_window`'s
+    ``(min_step, span)`` as float32 tensors, read in place of ``step`` (a
+    CUDA graph reads them at their addresses); the same ``t``."""
+    if window is None:
+        min_step, span = timestep_window(cfg, step)
+    else:
+        min_step, span = window[0].to(torch.int64), window[1]
     return (u.to(torch.float32) * span).to(torch.int32).to(torch.int64) + min_step
 
 
@@ -116,10 +128,12 @@ class MultiviewGuidance:
         ref_mask: Optional[torch.Tensor] = None,
         comp_bg: Optional[torch.Tensor] = None,
         ref_ip: Optional[torch.Tensor] = None,  # precomputed ip tokens [T, D]
+        window: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Dict[str, torch.Tensor]:
         latents = self.encode_latents(rgb, draws.get("vae_eps"))
         target, t = self.compute_target(latents, c2w, step, draws, ref_rgb=ref_rgb,
-                                        ref_mask=ref_mask, comp_bg=comp_bg, ref_ip=ref_ip)
+                                        ref_mask=ref_mask, comp_bg=comp_bg, ref_ip=ref_ip,
+                                        window=window)
         diff = latents - target
         B = latents.shape[0]
         loss = 0.5 * torch.sum(diff**2) / B
@@ -152,15 +166,17 @@ class MultiviewGuidance:
         ref_mask: Optional[torch.Tensor] = None,
         comp_bg: Optional[torch.Tensor] = None,
         ref_ip: Optional[torch.Tensor] = None,
+        window: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         """The no-grad half: noise the latents, run the frozen UNet with
         CFG, reconstruct the x0 target (``imagedream_guidance.py:223-331``).
-        Returns (detached target latents, t)."""
+        Returns (detached target latents, t).  ``window``: the timestep
+        window as tensors (:func:`sample_timestep`)."""
         cfg = self.cfg
         V = cfg.n_view
         sch = self.schedule
         latents = latents.detach()
-        t = sample_timestep(cfg, step, draws["u"])
+        t = sample_timestep(cfg, step, draws["u"], window)
         noise = _nchw(draws["noise"])
         latents_noisy = sch.q_sample(latents, t, noise)
 

@@ -170,10 +170,16 @@ def composite_block(
     _on_one_device("composite_block", args)
     # The packing stays outside the Function, so autograd splits the packed
     # gradient back onto xy, conic, opac, e and attrs.
-    feat, pixf = kernel_inputs(*args)
-    return kernel_outputs(*_Composite.apply(
-        feat, pixf, float(alpha_clamp), float(alpha_min), float(t_min)
-    ))
+    return kernel_outputs(*composite_kernel(*kernel_inputs(*args), alpha_clamp, alpha_min, t_min))
+
+
+def composite_kernel(feat: torch.Tensor, pixf: torch.Tensor, alpha_clamp: float,
+                     alpha_min: float, t_min: float):
+    """The kernel pair on packed inputs (:func:`kernel_inputs`), as one
+    differentiable op: the forward kernel's raw ``(accum [NT, C, P], corr,
+    T)`` (:func:`kernel_outputs` turns them into :func:`composite_block`'s);
+    its gradient launches the backward kernel."""
+    return _Composite.apply(feat, pixf, float(alpha_clamp), float(alpha_min), float(t_min))
 
 
 def kernel_inputs(xy, conic, opac, valid, attrs, e, pixf):

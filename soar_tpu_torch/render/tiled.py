@@ -416,16 +416,21 @@ def raster_passes(
         jobs.append((xy.detach(), conic.detach(), g_front[..., _PACK_OPAC],
                      slot_valid & front, occ_g, torch.zeros_like(xy), pixf))
 
+    # What finish reads of the front end, named here so that the closure
+    # does not keep the whole preprocess output alive until it runs.
+    visible = pre.valid
+    occ_ch = None if occ_colors is None else occ_colors.shape[-1]
+
     def finish(results):
-        ref_out = main_out(results[0])._replace(visible=pre.valid)
+        ref_out = main_out(results[0])._replace(visible=visible)
         main_ret = (ref_out, main_out(results[1])) if also_back else ref_out
-        if occ_colors is None:
+        if occ_ch is None:
             return main_ret, None
         accum_b, _, t_final_b = results[-1]
         Tb = torch.clamp_max(t_final_b, 1.0 - 1e-6)
         color_b = accum_b + Tb[..., None] * bg
         occ_out = RenderOutputs(
-            color=untile(color_b, occ_colors.shape[-1]),
+            color=untile(color_b, occ_ch),
             normal=ref_out.normal,
             depth=ref_out.depth,
             opac=untile((1.0 - Tb)[..., None], 1)[..., 0],

@@ -11,6 +11,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.constants import constant
+
 
 def l1(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(a - b))
@@ -39,12 +41,20 @@ def _gaussian_window(window_size: int, sigma: float) -> np.ndarray:
     return np.outer(g, g).astype(np.float32)
 
 
+@lru_cache(maxsize=8)
+def _window_values(window_size: int, sigma: float):
+    """:func:`_gaussian_window` as nested tuples of its float32 values, the
+    key of its device constant."""
+    return tuple(map(tuple, _gaussian_window(window_size, sigma).tolist()))
+
+
 def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11) -> torch.Tensor:
     """Windowed SSIM: 11x11 sigma-1.5 Gaussian window applied per channel
     (a depthwise ``conv2d`` with ``groups=C`` and same padding), C1 = 0.01²,
     C2 = 0.03².  Inputs [..., H, W, C] in [0, 1]."""
     C = img1.shape[-1]
-    w = torch.from_numpy(_gaussian_window(window_size, 1.5)).to(img1.device)
+    # A device constant: a host copy per call would be a host sync.
+    w = constant(_window_values(window_size, 1.5), torch.float32, img1.device)
     kernel = w[None, None].expand(C, 1, window_size, window_size)
     pad = window_size // 2
 

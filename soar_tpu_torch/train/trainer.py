@@ -7,7 +7,13 @@ explicit loss of the reference system (``gaussian_surfel_mvdream.py:
 259-460``) and, with a ``guidance_fn``, the SDS loss on the gen views,
 backpropagates once and takes one per-group Adam step.  On CUDA every
 composite, forward and backward, is a hand-written kernel
-(:mod:`soar_tpu_torch.render.block_composite`).
+(:mod:`soar_tpu_torch.render.block_composite`).  Without remat the step runs
+every render's front end, then every composite, then every render's finish
+and the losses; on CUDA the first and last of those phases replay from CUDA
+graphs around the eager composite launches
+(:mod:`soar_tpu_torch.train.step_graph`).  The loss's step-dependent numbers
+(the scheduled weights, the guidance's timestep window) reach it as one
+device vector (:func:`step_scalars`), so that a graph reads them.
 
 Random draws are split from the step: :func:`sample_step_draws` takes them
 from a ``torch.Generator``, and the step takes them as an argument, so a
@@ -46,11 +52,19 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from ..avatar import state as S
+from ..avatar import view_graph
 from ..avatar.optim import AvatarOptimizer, make_optimizer
-from ..avatar.renderer import RenderSettings, query_attributes, render_view
+from ..avatar.renderer import (
+    RenderSettings,
+    _view_outputs,
+    _view_passes,
+    query_attributes,
+    render_view,
+)
 from ..avatar.state import AvatarModel, AvatarParams
 from ..core import spans
 from ..core.camera import Camera, camera_from_c2w, get_ray_directions, get_rays
@@ -60,8 +74,11 @@ from ..data.cameras import (
     sample_multiview_cameras,
 )
 from ..parallel.views import Sharder
+from ..render import block_composite
+from ..render.tiled import composite_passes
 from ..render.types import RasterConfig
 from . import losses as L
+from . import step_graph
 from .background import (
     apply_random_aug,
     background_color,
@@ -159,6 +176,40 @@ def _recomputed(fn, *args, **kwargs):
     return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False, **kwargs)
 
 
+# The loss's step-dependent numbers, in the order of the step's device
+# vector of them (:func:`step_scalars`).
+STEP_SCALARS = ("recon", "mask", "normal_F", "normal_B", "normal_mask", "vgg", "occ", "curv",
+                "scales", "delta", "sds", "normal_consistency", "after_sds", "min_step", "span")
+
+
+def step_scalars(w, stage: StageConfig, step: int,
+                 timestep_window: Optional[Callable] = None) -> np.ndarray:
+    """:data:`STEP_SCALARS` at ``step``, evaluated on the host in double
+    precision and rounded once to float32, as a Python number is where it
+    meets a float32 tensor: each loss weight of ``w`` (:func:`scheduled`),
+    the normal-consistency weight with its ramp, ``after_sds`` (1 after
+    ``stage.sds_start``) and the guidance's timestep window ``(min_step,
+    span)`` from ``timestep_window(step)`` (zeros without one)."""
+    def C(v):
+        return scheduled(v, step)
+
+    vals = [C(w.recon), C(w.mask), C(w.normal_F), C(w.normal_B), C(w.normal_mask), C(w.vgg),
+            C(w.occ), C(w.curv), C(w.scales), C(w.delta), C(w.sds),
+            C(w.normal_consistency) + 0.1 * min(2.0 * step / 2000.0, 1.0),
+            float(step > stage.sds_start)]
+    vals += list(timestep_window(step)) if timestep_window is not None else [0.0, 0.0]
+    return np.asarray(vals, np.float64).astype(np.float32)
+
+
+def _on_device(values: np.ndarray, device: torch.device) -> torch.Tensor:
+    """``values`` on ``device``; to a GPU from pinned memory, with no host
+    sync."""
+    t = torch.from_numpy(values)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def make_train_step(
     model: AvatarModel,
     cfg: TrainConfig,
@@ -193,7 +244,9 @@ def make_train_step(
     stack [V, H, W, 3] (stage 1: the neural-background composite; stage 0:
     the rendered normals), the gen views' c2w, ``draws["sds"]``, the stage's
     reference image and mask, the first view's background and
-    ``batch["ref_ip"]`` when the batch has it.
+    ``batch["ref_ip"]`` when the batch has it.  A guidance with a
+    ``timestep_window(step)`` (:func:`soar_tpu_torch.guidance.build.
+    build_guidance`'s) gets that window as tensors too, as ``window``.
 
     ``lpips_fn(a, b) -> scalar`` takes [H, W, 3] images in [-1, 1]; with
     it the normal terms gain the LPIPS of the masked normals, and the VGG
@@ -228,6 +281,17 @@ def make_train_step(
     a re-render.  ``remat_gt`` None follows ``remat_gen``, and an explicit
     True or False does what the JAX package's does.
 
+    Without remat a step runs in three phases: the field query, the
+    regularisers that read the parameters and every render's front end;
+    then every composite; then every render's finish and the losses.  On
+    CUDA, with the composite kernel, no sharding, remat or ``gen_chunk``,
+    autocast and tracing off, and no hook on the guidance's or LPIPS's
+    modules, the first and last phase replay from CUDA graphs around the
+    eager composite launches (:mod:`soar_tpu_torch.train.step_graph`): a
+    key's first call runs eagerly, its second captures, later calls
+    replay the same computation.  ``train_step.eager``, ``.captures`` and
+    ``.replays`` count those calls of each kind.
+
     ``train_step.loss_fn(params, bg_params, batch, draws, step)`` returns
     ``(loss, metrics, aux)`` without stepping (``aux`` holds the renders and
     the gen views' background composite)."""
@@ -236,19 +300,21 @@ def make_train_step(
     nv = n_views or cfg.n_views
     remat_gen = bool(remat_gen)
     remat_gt = remat_gen if remat_gt is None else bool(remat_gt)
+    remat = remat_gen or remat_gt
     if gen_chunk is not None and gen_chunk < 1:
         raise ValueError(f"gen_chunk must be positive, got {gen_chunk}")
-    # The gen views' render units: this rank's block under shard_views,
-    # else chunks of gen_chunk, else each view when rematerialised, else
-    # all views in one go.
+    # This rank's gen views, and their render units under remat: the block,
+    # else chunks of gen_chunk, else each view.
+    gen_block = shard_views.block(nv) if shard_views is not None else (0, nv)
     if shard_views is not None:
-        gen_units = [shard_views.block(nv)]
+        gen_units = [gen_block]
     elif gen_chunk is not None and gen_chunk < nv:
         gen_units = [(i, min(i + gen_chunk, nv)) for i in range(0, nv, gen_chunk)]
     elif remat_gen:
         gen_units = [(v, v + 1) for v in range(nv)]
     else:
         gen_units = [(0, nv)]
+    n_renders = gen_block[1] - gen_block[0] + 1 + int(has_normals)
     mesh_sharder = shard_views if shard_views is not None else shard_gt
     gen_settings = RenderSettings(use_explicit=use_explicit, gen_view=True, raster=raster)
     gt_settings = RenderSettings(use_explicit=use_explicit, gen_view=False, raster=raster)
@@ -257,9 +323,30 @@ def make_train_step(
     # ``lambda_normal_B > 0.0 and "gt_normal_B" in batch``.
     nB_w_on = isinstance(w.normal_B, (tuple, list)) or float(w.normal_B) != 0.0
     use_nB = has_normals and has_normal_B and nB_w_on
+    # With the back pass: front + back (+ one occ) from one preprocess and sort.
+    normal_settings = dataclasses.replace(gt_settings, both_faces=use_nB)
+    window_fn = getattr(guidance_fn, "timestep_window", None)
+    # The modules of the networks a step runs, whose hooks a replay would
+    # skip; None where a callable's modules cannot be seen.
+    networks = []
+    if guidance_fn is not None:
+        networks += [getattr(guidance_fn, "unet", None), getattr(guidance_fn, "vae", None)]
+    if lpips_fn is not None:
+        networks.append(getattr(lpips_fn, "net", None))
+    net_modules = (None if any(n is None for n in networks)
+                   else [m for n in networks for m in n.modules()])
+    text = getattr(getattr(guidance_fn, "guidance", None), "text_embeddings", None)
+    # What the options allow: no remat, sharding or chunks, the composite
+    # kernel, networks whose hooks can be seen, and a guidance that takes
+    # its step's numbers as tensors (split SDS calls only the VAE).
+    graphable = (not remat and shard_views is None and shard_gt is None and gen_chunk is None
+                 and raster.composite == "kernel" and net_modules is not None
+                 and (guidance_fn is None or split_sds or window_fn is not None))
+    policy = view_graph.Policy(held=step_graph.HELD)
 
     def gen_pass(params, bg_params, frame_idx, draws, attrs, settings=gen_settings):
-        """The gen views and their neural-background composite."""
+        """The gen views rendered whole (under remat, and in the split-SDS
+        prelude) and their neural-background composite."""
         c2w, fovy = draws["c2w"], draws["fovy"]
         dev = c2w.device
         zeros = torch.zeros(3, device=dev)
@@ -275,12 +362,20 @@ def make_train_step(
         outs: List[Dict] = []
         for lo, hi in gen_units:
             outs += _recomputed(render_range, lo, hi) if remat_gen else render_range(lo, hi)
+        gen = gather_gen(outs)
+        return (gen,) + background(bg_params, draws, gen)
+
+    def gather_gen(outs: List[Dict]) -> Dict:
         gen = {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
         if shard_views is not None:
             gen = {k: shard_views.gather(v, nv) for k, v in gen.items()}
+        return gen
 
-        # Neural-bg composite over the gen renders
-        # (``renderer/gaussian_batch_renderer.py:262, 330-332``).
+    def background(bg_params, draws, gen):
+        """Neural-bg composite over the gen renders
+        (``renderer/gaussian_batch_renderer.py:262, 330-332``):
+        ``(comp_rgb, bg_rgb)``."""
+        c2w, fovy = draws["c2w"], draws["fovy"]
         Hg, Wg = gen_size
         focal = 0.5 * Hg / torch.tan(0.5 * fovy)
         rays_d = torch.stack([
@@ -289,80 +384,142 @@ def make_train_step(
         ])
         bg_rgb = apply_random_aug(background_color(bg_params, rays_d), draws["bg_aug"])
         comp_rgb = gen["render"] + (1.0 - gen["mask"][..., None]) * bg_rgb
-        return gen, comp_rgb, bg_rgb
+        return comp_rgb, bg_rgb
 
-    def loss_fn(params, bg_params, batch, draws, step: int):
-        frame_idx = batch["frame_idx"]
+    def step_inputs(batch: Dict, draws: Dict, step: int) -> Dict:
+        """What a step reads that changes from step to step: the batch's
+        tensors, the draws, the frame's SMPL parameters and the loss's step
+        scalars (:func:`step_scalars`, a device vector)."""
+        return {"batch": {k: v for k, v in batch.items() if k != "frame_idx"},
+                "draws": draws,
+                "fp": S.frame_params(model, batch["frame_idx"]),
+                "sc": _on_device(step_scalars(w, stage, step, window_fn), draws["c2w"].device)}
+
+    def regularisers(params, attrs):
+        """The two losses that read the parameters directly, made beside the
+        field query so that every path from a parameter to the loss runs
+        through the first phase (segment A): ``(scales_mean, loss_delta)``."""
+        if use_explicit:
+            scales_mean = torch.mean(S.get_scaling(params))
+        else:
+            scales_mean = torch.mean(attrs["scales"])
+        # eps-safe norm: at init xyz == original_pos, where the exact L2
+        # norm's gradient is NaN.
+        dvec = params.xyz - model.original_pos
+        loss_delta = torch.mean(torch.sqrt(torch.sum(dvec * dvec, -1) + 1e-12))
+        return scales_mean, loss_delta
+
+    def front(params, x):
+        """The first phase: the field query, the regularisers, and every
+        render's front end up to its composites, each as ``(settings, size,
+        camera, passes)``: this rank's gen views, the GT pass, the normal
+        pass."""
+        b, d, fp = x["batch"], x["draws"], x["fp"]
+        dev = d["c2w"].device
         # One field query serves every render of the step.
         attrs = None if use_explicit else query_attributes(params, model)
-        gen, comp_rgb, bg_rgb = gen_pass(params, bg_params, frame_idx, draws, attrs)
+        regs = regularisers(params, attrs)
+        gen_fp = S.root_zeroed(fp)
+        zeros, ones = torch.zeros(3, device=dev), torch.ones(3, device=dev)
+        renders = []
 
-        # ---- GT passes (row-sharded under shard_gt, recomputed under remat_gt)
-        def gt_render(*args):
-            if remat_gt:
-                return _recomputed(render_view, params, model, *args, attrs=attrs, rows=shard_gt)
-            return render_view(params, model, *args, attrs=attrs, rows=shard_gt)
+        def add(settings, size, fp, camera, bg):
+            passes = _view_passes(params, model, settings, size, fp, camera, bg, attrs)
+            renders.append((settings, size, camera, passes))
 
-        rand_bg = draws["rand_bg"]
-        gt = gt_render(batch["gt_cam"], gt_size, rand_bg, frame_idx, gt_settings)
+        for v in range(*gen_block):
+            add(gen_settings, gen_size, gen_fp,
+                camera_from_c2w(d["c2w"][v], d["fovy"][v], d["fovy"][v], znear=0.1, zfar=100.0),
+                zeros)
+        add(gt_settings, gt_size, fp, b["gt_cam"], d["rand_bg"])
         if has_normals:
-            ones = torch.ones(3, device=rand_bg.device)
-            if use_nB:
-                # Front + back (+ one occ) from one preprocess and sort.
-                gt_nF, gt_nB = gt_render(batch["normal_cam"], normal_size, ones, frame_idx,
-                                         dataclasses.replace(gt_settings, both_faces=True))
-            else:
-                gt_nF = gt_render(batch["normal_cam"], normal_size, ones, frame_idx,
-                                  gt_settings)
+            add(normal_settings, normal_size, fp, b["normal_cam"], ones)
+        return renders, regs
 
+    def back(bg_params, x, renders, results, regs, step: int):
+        """The last phase: every render's finish and post ops, from
+        ``renders``' ``(settings, size, camera, finish)`` and each render's
+        composite outputs, then the losses."""
+        outs = []
+        for (settings, size, camera, finish), res in zip(renders, results):
+            with spans.span("soar.render"):
+                outs.append(_view_outputs(settings, size, finish(res), camera))
+        n_gen = gen_block[1] - gen_block[0]
+        gen = gather_gen(outs[:n_gen])
+        normal = outs[n_gen + 1] if has_normals else None
+        return losses(bg_params, x, gen, background(bg_params, x["draws"], gen), outs[n_gen],
+                      normal, regs, step)
+
+    def front_kernel(params, x):
+        """Segment A: the first phase and, after every front end, each
+        composite's packed kernel inputs and constants.  Returns ``(mid,
+        regs, jobs)`` (:class:`soar_tpu_torch.train.step_graph.Segments`),
+        ``mid`` each render's ``(settings, size, camera, finish, jobs)``."""
+        renders, regs = front(params, x)
+        jobs = [block_composite.kernel_inputs(*job) + (passes.consts,)
+                for _, _, _, passes in renders for job in passes.jobs]
+        mid = [(s, z, c, p.finish, len(p.jobs)) for s, z, c, p in renders]
+        return mid, regs, jobs
+
+    def back_kernel(bg_params, x, mid, results, regs, step: int):
+        """Segment B: the last phase on the kernel's raw outputs."""
+        it = iter(results)
+        per_render = [[block_composite.kernel_outputs(*next(it)) for _ in range(m[4])]
+                      for m in mid]
+        return back(bg_params, x, [m[:4] for m in mid], per_render, regs, step)
+
+    def losses(bg_params, x, gen, comp_bg, gt, normal, regs, step: int):
+        b, draws = x["batch"], x["draws"]
+        comp_rgb, bg_rgb = comp_bg
+        sc = dict(zip(STEP_SCALARS, x["sc"].unbind(0)))
+        rand_bg = draws["rand_bg"]
+        gt_nF, gt_nB = normal if use_nB else (normal, None)
+        scales_mean, loss_delta = regs
         metrics = {}
-
-        def C(v):
-            return scheduled(v, step)
 
         # ---- explicit losses (``gaussian_surfel_mvdream.py:259-460``)
         with spans.span("soar.losses"):
-            m_gt = batch["gt_mask"][..., None]
-            mask = batch["gt_mask"] > 1e-5
-            gt_rgb_blended = batch["gt_rgb"] * m_gt + rand_bg * (1.0 - m_gt)
-            loss_recon = 0.8 * L.masked_l1(gt["render"], batch["gt_rgb"], mask) + 0.2 * (
+            m_gt = b["gt_mask"][..., None]
+            mask = b["gt_mask"] > 1e-5
+            gt_rgb_blended = b["gt_rgb"] * m_gt + rand_bg * (1.0 - m_gt)
+            loss_recon = 0.8 * L.masked_l1(gt["render"], b["gt_rgb"], mask) + 0.2 * (
                 1.0 - L.ssim(gt["render"], gt_rgb_blended)
             )
-            loss = C(w.recon) * loss_recon
+            loss = sc["recon"] * loss_recon
             metrics["loss_recon"] = loss_recon
 
-            loss_mask = torch.mean(torch.abs(gt["mask"] - batch["gt_mask"]))
-            loss = loss + C(w.mask) * loss_mask
+            loss_mask = torch.mean(torch.abs(gt["mask"] - b["gt_mask"]))
+            loss = loss + sc["mask"] * loss_mask
             metrics["loss_mask"] = loss_mask
 
             if has_normals:
-                nmask = batch["gt_normal_mask"] > 1e-5
-                loss_nF = 0.2 * L.cos_loss(gt_nF["normal"], batch["gt_normal_F"], nmask, thrsh=0.0)
+                nmask = b["gt_normal_mask"] > 1e-5
+                loss_nF = 0.2 * L.cos_loss(gt_nF["normal"], b["gt_normal_F"], nmask, thrsh=0.0)
                 if use_nB:
-                    loss_nB = 0.2 * L.cos_loss(gt_nB["normal"], batch["gt_normal_B"], nmask,
+                    loss_nB = 0.2 * L.cos_loss(gt_nB["normal"], b["gt_normal_B"], nmask,
                                                thrsh=0.0)
                 if lpips_fn is not None:
                     # LPIPS of the masked normals, shifted to [-1, 1], inside the
                     # normal terms (``gaussian_surfel_mvdream.py:342-393``), with
                     # the reference's quirk: the front pass multiplies by the raw
                     # alpha mask, the back pass by the binarised one.
-                    nm_raw = batch["gt_normal_mask"][..., None]
+                    nm_raw = b["gt_normal_mask"][..., None]
                     nm_bin = nmask[..., None].to(nm_raw.dtype)
 
                     def nlp(pred01, gt01, nm):
                         return lpips_fn((pred01 * nm - 0.5) * 2.0, (gt01 * nm - 0.5) * 2.0)
 
-                    loss_nF = loss_nF + nlp(gt_nF["normal"], batch["gt_normal_F"], nm_raw)
+                    loss_nF = loss_nF + nlp(gt_nF["normal"], b["gt_normal_F"], nm_raw)
                     if use_nB:
-                        loss_nB = loss_nB + nlp(gt_nB["normal"], batch["gt_normal_B"], nm_bin)
-                loss = loss + C(w.normal_F) * loss_nF
+                        loss_nB = loss_nB + nlp(gt_nB["normal"], b["gt_normal_B"], nm_bin)
+                loss = loss + sc["normal_F"] * loss_nF
                 metrics["loss_normal_F"] = loss_nF
                 if use_nB:
-                    loss = loss + C(w.normal_B) * loss_nB
+                    loss = loss + sc["normal_B"] * loss_nB
                     metrics["loss_normal_B"] = loss_nB
                     # Nested in the reference's normal_B branch (``:394-399``).
-                    loss_nmask = torch.mean(torch.abs(gt_nF["mask"] - batch["gt_normal_mask"]))
-                    loss = loss + C(w.normal_mask) * loss_nmask
+                    loss_nmask = torch.mean(torch.abs(gt_nF["mask"] - b["gt_normal_mask"]))
+                    loss = loss + sc["normal_mask"] * loss_nmask
                     metrics["loss_normal_mask"] = loss_nmask
 
             # VGG/LPIPS RGB term (``gaussian_surfel_mvdream.py:401-410``), gated
@@ -370,42 +527,33 @@ def make_train_step(
             # lambda_normal_B > 0, which the configs that enable it set to 0.
             if lpips_fn is not None and (isinstance(w.vgg, (tuple, list)) or float(w.vgg) != 0.0):
                 loss_vgg = lpips_fn((gt["render"] - 0.5) * 2.0, (gt_rgb_blended - 0.5) * 2.0)
-                loss = loss + C(w.vgg) * loss_vgg
+                loss = loss + sc["vgg"] * loss_vgg
                 metrics["loss_vgg"] = loss_vgg
 
             # occ supervision: visible (masked) pixels should predict occ -> 1.
             occ_gt = gt["occ"][..., 0]
             m = mask.to(occ_gt.dtype)
             loss_occ = torch.sum((1.0 - occ_gt) * m) / torch.clamp_min(torch.sum(m), 1.0)
-            loss = loss + C(w.occ) * loss_occ
+            loss = loss + sc["occ"] * loss_occ
             metrics["loss_occ"] = loss_occ
 
             # Normal consistency: rendered vs depth-derived normals; the gen
             # views' term joins after sds_start.
             loss_nc = L.cos_loss(gt["pred_normal"], gt["normal"], thrsh=np.pi / 10000.0)
             gen_nc = L.cos_loss(gen["pred_normal"], gen["normal"], thrsh=np.pi / 10000.0)
-            after_sds = float(step > stage.sds_start)
+            after_sds = sc["after_sds"]
             loss_nc = (loss_nc + after_sds * gen_nc) / (1.0 + after_sds)
-            nc_w = C(w.normal_consistency) + 0.1 * min(2.0 * step / 2000.0, 1.0)
-            loss = loss + nc_w * loss_nc
+            loss = loss + sc["normal_consistency"] * loss_nc
             metrics["loss_normal_consistency"] = loss_nc
 
             loss_curv = torch.mean(torch.abs(gen["curv"]))
-            loss = loss + C(w.curv) * loss_curv
+            loss = loss + sc["curv"] * loss_curv
             metrics["loss_curv"] = loss_curv
 
-            if use_explicit:
-                scales_mean = torch.mean(S.get_scaling(params))
-            else:
-                scales_mean = torch.mean(attrs["scales"])
-            loss = loss + C(w.scales) * scales_mean
+            loss = loss + sc["scales"] * scales_mean
             metrics["loss_scales"] = scales_mean
 
-            # eps-safe norm: at init xyz == original_pos, where the exact L2
-            # norm's gradient is NaN.
-            dvec = params.xyz - model.original_pos
-            loss_delta = torch.mean(torch.sqrt(torch.sum(dvec * dvec, -1) + 1e-12))
-            loss = loss + C(w.delta) * loss_delta
+            loss = loss + sc["delta"] * loss_delta
             metrics["loss_delta"] = loss_delta
 
         # ---- SDS guidance (``gaussian_surfel_mvdream.py:180-254``): the
@@ -425,22 +573,23 @@ def make_train_step(
                     "gt_normal_F", "gt_normal_mask")
                 if split_sds:
                     # The gradient half; the no-grad target came from the prelude.
-                    if "sds_target" not in batch:
+                    if "sds_target" not in b:
                         raise ValueError("a split-SDS step needs batch['sds_target'] "
                                          "(train_step.sds_prelude, then "
                                          "guidance_fn.compute_target)")
                     lat = guidance_fn.encode_latents(inp, draws["sds"]["vae_eps"])
-                    diff = lat - batch["sds_target"].detach()
+                    diff = lat - b["sds_target"].detach()
                     V = lat.shape[0]
                     # /V: the reference's grad_norm is the autograd of the
                     # /V-scaled recon loss.
                     sds_out = {"loss_sds": 0.5 * torch.sum(diff**2) / V,
                                "grad_norm": torch.linalg.norm(diff.detach()) / V}
                 else:
+                    kw = {} if window_fn is None else {"window": (sc["min_step"], sc["span"])}
                     sds_out = guidance_fn(inp, draws["c2w"], step, draws["sds"],
-                                          ref_rgb=batch.get(ref[0]), ref_mask=batch.get(ref[1]),
-                                          comp_bg=bg_rgb[0], ref_ip=batch.get("ref_ip"))
-                loss = loss + C(w.sds) * sds_out["loss_sds"]
+                                          ref_rgb=b.get(ref[0]), ref_mask=b.get(ref[1]),
+                                          comp_bg=bg_rgb[0], ref_ip=b.get("ref_ip"), **kw)
+                loss = loss + sc["sds"] * sds_out["loss_sds"]
                 metrics["loss_sds"] = sds_out["loss_sds"]
                 if "grad_norm" in sds_out:
                     metrics["sds_grad_norm"] = sds_out["grad_norm"]
@@ -461,19 +610,83 @@ def make_train_step(
                 aux["gt_normal_B"] = gt_nB
         return loss, metrics, aux
 
+    def remat_loss(params, bg_params, batch, x, step: int):
+        """The step's loss with the renders recomputed in the backward: each
+        render whole (:func:`render_view`) under ``torch.utils.checkpoint``."""
+        frame_idx = batch["frame_idx"]
+        attrs = None if use_explicit else query_attributes(params, model)
+        regs = regularisers(params, attrs)
+        gen, comp_rgb, bg_rgb = gen_pass(params, bg_params, frame_idx, x["draws"], attrs)
+
+        def gt_render(*args):
+            if remat_gt:
+                return _recomputed(render_view, params, model, *args, attrs=attrs, rows=shard_gt)
+            return render_view(params, model, *args, attrs=attrs, rows=shard_gt)
+
+        rand_bg = x["draws"]["rand_bg"]
+        gt = gt_render(batch["gt_cam"], gt_size, rand_bg, frame_idx, gt_settings)
+        normal = None
+        if has_normals:
+            normal = gt_render(batch["normal_cam"], normal_size,
+                               torch.ones(3, device=rand_bg.device), frame_idx, normal_settings)
+        return losses(bg_params, x, gen, (comp_rgb, bg_rgb), gt, normal, regs, step)
+
+    def loss_fn(params, bg_params, batch, draws, step: int, x: Optional[Dict] = None):
+        if x is None:
+            x = step_inputs(batch, draws, step)
+        if remat:
+            return remat_loss(params, bg_params, batch, x, step)
+        renders, regs = front(params, x)
+        n_gen = gen_block[1] - gen_block[0]
+        # Row sharding splits the GT passes only.
+        results = [composite_passes(p, raster, shard_gt if i >= n_gen else None)
+                   for i, (_, _, _, p) in enumerate(renders)]
+        renders = [(s, z, c, p.finish) for s, z, c, p in renders]
+        return back(bg_params, x, renders, results, regs, step)
+
+    def eager_step(state: TrainState, batch: Dict, x: Dict) -> Dict:
+        loss, metrics, _ = loss_fn(state.params, state.bg_params, batch, None, state.step, x)
+        with spans.span("soar.backward"):
+            loss.backward()
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def networks_key():
+        """The networks' tensors by address, or None when a hook is on one
+        of their modules."""
+        if step_graph.hooked(net_modules):
+            return None
+        return tuple(t.data_ptr() for m in net_modules
+                     for t in (*m._parameters.values(), *m._buffers.values()) if t is not None)
+
     @spans.spanned("soar.step", unit="step")
     def train_step(state: TrainState, batch: Dict, draws: Dict):
         state.opt.zero_grad()
-        loss, metrics, _ = loss_fn(state.params, state.bg_params, batch, draws, state.step)
-        with spans.span("soar.backward"):
-            loss.backward()
+        if not remat:
+            view_graph.grad_view(n_renders)
+        x = step_inputs(batch, draws, state.step)
+        net_key = networks_key() if graphable else None
+        if net_key is not None and step_graph.eligible(x, state.params.xyz.device):
+            key = (state.step > stage.sds_start, step_graph.structure(x),
+                   view_graph.avatar_key(state.params, model),
+                   tuple(t.data_ptr() for t in pytree.tree_leaves(state.bg_params)),
+                   None if text is None else text.data_ptr(), id(state.opt), net_key,
+                   view_graph.tf32_key())
+            seg = step_graph.Segments(
+                params=state.params,
+                front=lambda xs: front_kernel(state.params, xs),
+                back=lambda xs, mid, res, regs: back_kernel(state.bg_params, xs, mid, res, regs,
+                                                            state.step)[:2],
+                eager=lambda xs: eager_step(state, batch, xs))
+            metrics = step_graph.step(policy, key, seg, x, train_step)
+        else:
+            metrics = eager_step(state, batch, x)
         if mesh_sharder is not None:
             mesh_sharder.average_gradients(state.params)
         # The background MLP is not optimised (the reference builds its
         # optimizer but never returns it).
         state.opt.step()
         state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return state, metrics
 
     @torch.no_grad()
     def sds_prelude(state: TrainState, batch: Dict, draws: Dict):
@@ -490,6 +703,7 @@ def make_train_step(
 
     train_step.loss_fn = loss_fn
     train_step.sds_prelude = sds_prelude if (split_sds and guidance_fn is not None) else None
+    train_step.eager = train_step.captures = train_step.replays = 0
     return train_step
 
 
