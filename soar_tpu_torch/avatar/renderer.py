@@ -8,14 +8,14 @@ curvature.  ``both_faces`` renders the front and back surfaces (plus the
 shared occ pass) from one preprocess and sort.
 
 A view rendered on CUDA without autograd is replayed from two CUDA graphs
-around its composite launches (:mod:`soar_tpu_torch.avatar.view_graph`);
-every other call runs the same three phases eagerly.
+around its composite launches (:mod:`soar_tpu_torch.render.graphs`); every
+other call runs the same three phases eagerly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Hashable, Optional, Tuple
 
 import torch
 
@@ -26,11 +26,11 @@ from ..core.camera import Camera
 from ..core.constants import constant
 from ..core.transforms import quat_to_rotmat, rotmat_to_quat
 from ..field.attribute_field import attribute_field_apply
+from ..render import graphs
 from ..render.postprocess import depth2normal, normal2curv
 from ..render.tiled import Passes, composite_passes, raster_passes
 from ..render.types import GaussianInputs, RasterConfig
 from . import state as S
-from . import view_graph
 from .state import AvatarModel, AvatarParams
 
 
@@ -188,6 +188,22 @@ def _view_outputs(settings, image_size, raster_out, camera):
     return post(main)
 
 
+def avatar_key(params: AvatarParams, model: AvatarModel) -> Hashable:
+    """Every tensor of ``params`` and ``model`` by address, and the field's
+    configuration: what a capture reads in place of the avatar."""
+    return (tuple(map(graphs.tensor_key, params.parameters())),
+            tuple(map(graphs.tensor_key, params.buffers())), params.field.cfg,
+            tuple(graphs.tensor_key(getattr(model, f.name)) for f in dataclasses.fields(model)))
+
+
+def _graphed(params: AvatarParams, inputs, settings: RenderSettings, rows) -> bool:
+    """Whether a view with the copied inputs ``inputs`` replays from CUDA
+    graphs: autograd off, the composite kernel, no row sharding and
+    :func:`soar_tpu_torch.render.graphs.eligible`."""
+    return (not torch.is_grad_enabled() and settings.raster.composite == "kernel" and rows is None
+            and graphs.eligible(params.xyz.device, graphs.leaves(inputs)))
+
+
 @spans.spanned("soar.render", unit="view")
 def render_view(
     params: AvatarParams,
@@ -209,21 +225,29 @@ def render_view(
 
     On CUDA, with autograd, autocast and tracing off, the composite kernel
     and no ``rows``, the view is replayed from CUDA graphs
-    (:func:`soar_tpu_torch.avatar.view_graph.render`): the same phases, the
-    same values."""
+    (:func:`soar_tpu_torch.render.graphs.run`): the same phases, the same
+    values.  ``render_view.eager``, ``.captures`` and ``.replays`` count
+    those calls of each kind since import."""
     fp = S.frame_params(model, frame_idx, settings.gen_view, smpl_override)
     inputs = (fp, camera, bg_color, attrs)
 
-    def passes(fp, camera, bg_color, attrs):
-        return _view_passes(params, model, settings, image_size, fp, camera, bg_color, attrs)
+    def front(x):
+        p = _view_passes(params, model, settings, image_size, *x)
+        return p.finish, [p], ()
 
-    def outputs(raster_out, camera):
-        return _view_outputs(settings, image_size, raster_out, camera)
+    def back(x, finish, results, regs):
+        return _view_outputs(settings, image_size, finish(results[0]), x[1])
 
-    if view_graph.eligible(params.xyz, inputs, settings.raster, rows):
-        return view_graph.render(params, model, (tuple(image_size), settings), inputs,
-                                 passes, outputs)
-    if torch.is_grad_enabled():
-        view_graph.grad_view()
-    p = passes(*inputs)
-    return outputs(p.finish(composite_passes(p, settings.raster, rows)), camera)
+    def eager(x):
+        finish, (p,), _ = front(x)
+        return back(x, finish, [composite_passes(p, settings.raster, rows)], ())
+
+    if _graphed(params, inputs, settings, rows):
+        key = (tuple(image_size), settings, avatar_key(params, model))
+        return graphs.run(graphs.VIEWS, key, graphs.Segments(front, back, eager), inputs,
+                          render_view)
+    return eager(inputs)
+
+
+# Calls of each kind since import.
+render_view.eager = render_view.captures = render_view.replays = 0

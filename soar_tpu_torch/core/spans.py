@@ -35,9 +35,9 @@ sorts), ``raster.keys_in_tiles`` (those that land in a tile),
 ``densify.cloned``, ``densify.split``, ``densify.pruned`` (the slots a
 densify filled by clone and by split, the surfels a prune took away) and
 ``densify.alive`` (the surfels alive after a ``soar.densify``).  A view
-rendered while tracing is on runs eagerly, never from the view graphs of
-:mod:`soar_tpu_torch.avatar.view_graph`, so its spans and counters read
-the same in every view.
+or step run while tracing is on runs eagerly, never from the CUDA graphs
+of :mod:`soar_tpu_torch.render.graphs`, so its spans and counters read the
+same in every view and step.
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ pass from one sort (:func:`rasterize_front_back`).
 A view runs in three phases: :func:`raster_passes` (preprocess to the
 composites' inputs), :func:`composite_passes` and ``Passes.finish`` (the
 output assembly), so that a caller can run the composites apart from the
-rest (:mod:`soar_tpu_torch.avatar.view_graph` replays the other two from
-CUDA graphs).
+rest (:mod:`soar_tpu_torch.render.graphs` replays the other two from CUDA
+graphs).
 
 ``rows`` (a :func:`soar_tpu_torch.parallel.row_sharder`) row-shards a view
 over the ranks of a process group: preprocess, binning, sort and gather
@@ -35,6 +35,7 @@ import torch
 
 from ..core import spans
 from ..core.camera import Camera
+from . import graphs
 from .block_composite import composite_block
 from .composite import (
     composite_block_plain,
@@ -446,7 +447,10 @@ def composite_passes(passes: Passes, cfg: RasterConfig, rows=None) -> List[Tuple
     """Each of ``passes``' composite calls, in order: the kernel's wrapper
     (:func:`composite_block`) or, under ``composite="plain"``, the plain
     version in ``cfg.composite_dtype``; with ``rows``, on this rank's band
-    of tile rows."""
+    of tile rows.  With autograd on, the passes count as a view rendered
+    with autograd on (:data:`soar_tpu_torch.render.graphs.VIEWS`)."""
+    if torch.is_grad_enabled():
+        graphs.VIEWS.grad_view()
     if cfg.composite == "kernel":
         composite = composite_block
     else:

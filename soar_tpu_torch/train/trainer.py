@@ -11,7 +11,7 @@ composite, forward and backward, is a hand-written kernel
 every render's front end, then every composite, then every render's finish
 and the losses; on CUDA the first and last of those phases replay from CUDA
 graphs around the eager composite launches
-(:mod:`soar_tpu_torch.train.step_graph`).  The loss's step-dependent numbers
+(:mod:`soar_tpu_torch.render.graphs`).  The loss's step-dependent numbers
 (the scheduled weights, the guidance's timestep window) reach it as one
 device vector (:func:`step_scalars`), so that a graph reads them.
 
@@ -30,8 +30,6 @@ forward-only, the caller computes ``batch["sds_target"]`` with
 ``guidance_fn.compute_target``, and the step keeps the VAE encode and the
 squared distance to the target.  ``lpips_fn`` adds the normal-LPIPS terms
 and the VGG RGB term (:mod:`soar_tpu_torch.train.lpips`).
-``sds_via_params`` and ``lpips_via_batch`` select the same computation
-here: the weights live in modules.
 
 Multi-device (:mod:`soar_tpu_torch.parallel`, one process per device):
 ``shard_views`` renders this rank's block of the gen views and gathers the
@@ -56,12 +54,12 @@ from torch.utils import _pytree as pytree
 from torch.utils.checkpoint import checkpoint
 
 from ..avatar import state as S
-from ..avatar import view_graph
 from ..avatar.optim import AvatarOptimizer, make_optimizer
 from ..avatar.renderer import (
     RenderSettings,
     _view_outputs,
     _view_passes,
+    avatar_key,
     query_attributes,
     render_view,
 )
@@ -74,11 +72,10 @@ from ..data.cameras import (
     sample_multiview_cameras,
 )
 from ..parallel.views import Sharder
-from ..render import block_composite
+from ..render import graphs
 from ..render.tiled import composite_passes
 from ..render.types import RasterConfig
 from . import losses as L
-from . import step_graph
 from .background import (
     apply_random_aug,
     background_color,
@@ -210,6 +207,14 @@ def _on_device(values: np.ndarray, device: torch.device) -> torch.Tensor:
     return t.to(device)
 
 
+def _graphed(device: torch.device, x) -> bool:
+    """Whether a step on ``device`` with the step inputs ``x`` can replay
+    from CUDA graphs: autograd on and
+    :func:`soar_tpu_torch.render.graphs.eligible`.  The step adds its
+    options and the networks' hooks."""
+    return torch.is_grad_enabled() and graphs.eligible(device, graphs.leaves(x))
+
+
 def make_train_step(
     model: AvatarModel,
     cfg: TrainConfig,
@@ -227,9 +232,7 @@ def make_train_step(
     shard_views: Optional[Sharder] = None,
     shard_gt: Optional[Sharder] = None,
     lpips_fn: Optional[Callable] = None,
-    lpips_via_batch: bool = False,
     split_sds: bool = False,
-    sds_via_params: bool = False,
     remat_gen: Optional[bool] = None,
     remat_gt: Optional[bool] = None,
     gen_chunk: Optional[int] = None,
@@ -287,7 +290,7 @@ def make_train_step(
     CUDA, with the composite kernel, no sharding, remat or ``gen_chunk``,
     autocast and tracing off, and no hook on the guidance's or LPIPS's
     modules, the first and last phase replay from CUDA graphs around the
-    eager composite launches (:mod:`soar_tpu_torch.train.step_graph`): a
+    eager composite launches (:mod:`soar_tpu_torch.render.graphs`): a
     key's first call runs eagerly, its second captures, later calls
     replay the same computation.  ``train_step.eager``, ``.captures`` and
     ``.replays`` count those calls of each kind.
@@ -295,8 +298,6 @@ def make_train_step(
     ``train_step.loss_fn(params, bg_params, batch, draws, step)`` returns
     ``(loss, metrics, aux)`` without stepping (``aux`` holds the renders and
     the gen views' background composite)."""
-    del lpips_via_batch, sds_via_params  # no meaning here: the weights live in modules
-
     nv = n_views or cfg.n_views
     remat_gen = bool(remat_gen)
     remat_gt = remat_gen if remat_gt is None else bool(remat_gt)
@@ -314,7 +315,6 @@ def make_train_step(
         gen_units = [(v, v + 1) for v in range(nv)]
     else:
         gen_units = [(0, nv)]
-    n_renders = gen_block[1] - gen_block[0] + 1 + int(has_normals)
     mesh_sharder = shard_views if shard_views is not None else shard_gt
     gen_settings = RenderSettings(use_explicit=use_explicit, gen_view=True, raster=raster)
     gt_settings = RenderSettings(use_explicit=use_explicit, gen_view=False, raster=raster)
@@ -342,7 +342,7 @@ def make_train_step(
     graphable = (not remat and shard_views is None and shard_gt is None and gen_chunk is None
                  and raster.composite == "kernel" and net_modules is not None
                  and (guidance_fn is None or split_sds or window_fn is not None))
-    policy = view_graph.Policy(held=step_graph.HELD)
+    policy = graphs.Policy(held=graphs.HELD_STEPS)
 
     def gen_pass(params, bg_params, frame_idx, draws, attrs, settings=gen_settings):
         """The gen views rendered whole (under remat, and in the split-SDS
@@ -410,10 +410,11 @@ def make_train_step(
         return scales_mean, loss_delta
 
     def front(params, x):
-        """The first phase: the field query, the regularisers, and every
-        render's front end up to its composites, each as ``(settings, size,
-        camera, passes)``: this rank's gen views, the GT pass, the normal
-        pass."""
+        """The first phase (graph A): the field query, the regularisers,
+        and every render's front end up to its composites: this rank's gen
+        views, the GT pass, the normal pass.  Returns each render's
+        ``(settings, size, camera, finish)``, their passes and the
+        regularisers (:class:`soar_tpu_torch.render.graphs.Segments`)."""
         b, d, fp = x["batch"], x["draws"], x["fp"]
         dev = d["c2w"].device
         # One field query serves every render of the step.
@@ -421,11 +422,12 @@ def make_train_step(
         regs = regularisers(params, attrs)
         gen_fp = S.root_zeroed(fp)
         zeros, ones = torch.zeros(3, device=dev), torch.ones(3, device=dev)
-        renders = []
+        renders, passes = [], []
 
         def add(settings, size, fp, camera, bg):
-            passes = _view_passes(params, model, settings, size, fp, camera, bg, attrs)
-            renders.append((settings, size, camera, passes))
+            p = _view_passes(params, model, settings, size, fp, camera, bg, attrs)
+            renders.append((settings, size, camera, p.finish))
+            passes.append(p)
 
         for v in range(*gen_block):
             add(gen_settings, gen_size, gen_fp,
@@ -434,12 +436,12 @@ def make_train_step(
         add(gt_settings, gt_size, fp, b["gt_cam"], d["rand_bg"])
         if has_normals:
             add(normal_settings, normal_size, fp, b["normal_cam"], ones)
-        return renders, regs
+        return renders, passes, regs
 
     def back(bg_params, x, renders, results, regs, step: int):
-        """The last phase: every render's finish and post ops, from
-        ``renders``' ``(settings, size, camera, finish)`` and each render's
-        composite outputs, then the losses."""
+        """The last phase (graph B): every render's finish and post ops,
+        from ``renders``' ``(settings, size, camera, finish)`` and each
+        render's composite outputs, then the losses."""
         outs = []
         for (settings, size, camera, finish), res in zip(renders, results):
             with spans.span("soar.render"):
@@ -449,24 +451,6 @@ def make_train_step(
         normal = outs[n_gen + 1] if has_normals else None
         return losses(bg_params, x, gen, background(bg_params, x["draws"], gen), outs[n_gen],
                       normal, regs, step)
-
-    def front_kernel(params, x):
-        """Segment A: the first phase and, after every front end, each
-        composite's packed kernel inputs and constants.  Returns ``(mid,
-        regs, jobs)`` (:class:`soar_tpu_torch.train.step_graph.Segments`),
-        ``mid`` each render's ``(settings, size, camera, finish, jobs)``."""
-        renders, regs = front(params, x)
-        jobs = [block_composite.kernel_inputs(*job) + (passes.consts,)
-                for _, _, _, passes in renders for job in passes.jobs]
-        mid = [(s, z, c, p.finish, len(p.jobs)) for s, z, c, p in renders]
-        return mid, regs, jobs
-
-    def back_kernel(bg_params, x, mid, results, regs, step: int):
-        """Segment B: the last phase on the kernel's raw outputs."""
-        it = iter(results)
-        per_render = [[block_composite.kernel_outputs(*next(it)) for _ in range(m[4])]
-                      for m in mid]
-        return back(bg_params, x, [m[:4] for m in mid], per_render, regs, step)
 
     def losses(bg_params, x, gen, comp_bg, gt, normal, regs, step: int):
         b, draws = x["batch"], x["draws"]
@@ -636,12 +620,11 @@ def make_train_step(
             x = step_inputs(batch, draws, step)
         if remat:
             return remat_loss(params, bg_params, batch, x, step)
-        renders, regs = front(params, x)
+        renders, passes, regs = front(params, x)
         n_gen = gen_block[1] - gen_block[0]
         # Row sharding splits the GT passes only.
         results = [composite_passes(p, raster, shard_gt if i >= n_gen else None)
-                   for i, (_, _, _, p) in enumerate(renders)]
-        renders = [(s, z, c, p.finish) for s, z, c, p in renders]
+                   for i, p in enumerate(passes)]
         return back(bg_params, x, renders, results, regs, step)
 
     def eager_step(state: TrainState, batch: Dict, x: Dict) -> Dict:
@@ -653,31 +636,24 @@ def make_train_step(
     def networks_key():
         """The networks' tensors by address, or None when a hook is on one
         of their modules."""
-        if step_graph.hooked(net_modules):
-            return None
-        return tuple(t.data_ptr() for m in net_modules
-                     for t in (*m._parameters.values(), *m._buffers.values()) if t is not None)
+        return None if graphs.hooked(net_modules) else graphs.addresses(net_modules)
 
     @spans.spanned("soar.step", unit="step")
     def train_step(state: TrainState, batch: Dict, draws: Dict):
         state.opt.zero_grad()
-        if not remat:
-            view_graph.grad_view(n_renders)
         x = step_inputs(batch, draws, state.step)
         net_key = networks_key() if graphable else None
-        if net_key is not None and step_graph.eligible(x, state.params.xyz.device):
-            key = (state.step > stage.sds_start, step_graph.structure(x),
-                   view_graph.avatar_key(state.params, model),
+        if net_key is not None and _graphed(state.params.xyz.device, x):
+            key = (state.step > stage.sds_start, avatar_key(state.params, model),
                    tuple(t.data_ptr() for t in pytree.tree_leaves(state.bg_params)),
-                   None if text is None else text.data_ptr(), id(state.opt), net_key,
-                   view_graph.tf32_key())
-            seg = step_graph.Segments(
-                params=state.params,
-                front=lambda xs: front_kernel(state.params, xs),
-                back=lambda xs, mid, res, regs: back_kernel(state.bg_params, xs, mid, res, regs,
-                                                            state.step)[:2],
-                eager=lambda xs: eager_step(state, batch, xs))
-            metrics = step_graph.step(policy, key, seg, x, train_step)
+                   None if text is None else text.data_ptr(), id(state.opt), net_key)
+            seg = graphs.Segments(
+                front=lambda xs: front(state.params, xs),
+                back=lambda xs, mid, res, regs: back(state.bg_params, xs, mid, res, regs,
+                                                     state.step)[:2],
+                eager=lambda xs: eager_step(state, batch, xs),
+                params=state.params)
+            metrics = graphs.run(policy, key, seg, x, train_step)
         else:
             metrics = eager_step(state, batch, x)
         if mesh_sharder is not None:

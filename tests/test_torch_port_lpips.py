@@ -202,7 +202,7 @@ def test_lpips_step_matches_jax(avatar, lpips_pickle, precise_cpu_conv):
     state.bg_params = background_from_numpy(jax.tree_util.tree_map(np.asarray, bg), "cpu")
     step = ttr.make_train_step(
         tmodel, tcfg, tstage, opt, gen_size=GEN, gt_size=SIZE, normal_size=SIZE, raster=TRASTER,
-        use_explicit=True, lpips_via_batch=True,
+        use_explicit=True,
         lpips_fn=tlpips.make_lpips_fn(path, dtype=torch.float32, device="cpu"))
     tbatch = ttr.make_gt_batch(tds, tmodel, 1, device="cpu")
     loss, metrics, _ = step.loss_fn(tparams, state.bg_params, tbatch, _jax_draws(key, jcfg, NV), 2)

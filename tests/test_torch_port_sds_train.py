@@ -118,7 +118,7 @@ def test_guided_train_step_matches_jax(avatar, monkeypatch, kind, training_stage
     state.bg_params = background_from_numpy(jax.tree_util.tree_map(np.asarray, bg), "cpu")
     step = ttr.make_train_step(tmodel, tcfg, tstage, opt, gen_size=GEN, gt_size=SIZE,
                                normal_size=SIZE, raster=traster, use_explicit=use_explicit,
-                               guidance_fn=g, sds_via_params=True)
+                               guidance_fn=g)
     tbatch = ttr.make_gt_batch(tds, tmodel, 1, device="cpu")
     tbatch["ref_ip"] = t(ref_ip)
     draws = _jax_draws(key, jcfg, NV)

@@ -1,10 +1,11 @@
 """The training step replayed from CUDA graphs
-(``soar_tpu_torch.train.step_graph``) and what capture asked of the code
-the step runs.
+(``soar_tpu_torch.render.graphs``) and what capture asked of the code the
+step runs.
 
 On the CPU: which steps take the graph path, the capture policy (a fake
-capture), the per-step scalars fed to the graphs against the host's
-values, and the SSIM window's device constant.  The tests marked ``cuda``
+capture), the renders a step counts toward the views' policy, the graphs
+module's imports, the per-step scalars fed to the graphs against the
+host's values, and the SSIM window's device constant.  The tests marked ``cuda``
 run on the card (this file imports no JAX):
 
     python -m pytest tests/test_torch_train_graph.py --noconftest -q
@@ -16,7 +17,9 @@ count the composite launches through their wrappers, and check host
 syncs, memory and the counters.
 """
 
+import ast
 import dataclasses
+import importlib.util
 import itertools
 import pickle
 import types
@@ -29,9 +32,9 @@ from torch.utils import _pytree as pytree
 
 from soar_tpu_torch.core import spans
 from soar_tpu_torch.guidance.sds import GuidanceConfig, sample_timestep, timestep_window
+from soar_tpu_torch.render import graphs as G
 from soar_tpu_torch.train import config as P
 from soar_tpu_torch.train import losses as L
-from soar_tpu_torch.train import step_graph as SG
 from soar_tpu_torch.train.trainer import STEP_SCALARS, step_scalars
 
 NV = 4
@@ -123,23 +126,14 @@ class _OnCuda0(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("case", ["cpu", "no_grad", "autocast", "capturing", "traced",
-                                  "input_elsewhere", "other_device", "all_hold"])
-def test_eligible_only_on_the_card_with_autograd_and_tracing_off(case, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: case == "capturing")
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1 if case == "other_device" else 0)
-    dev = torch.device("cpu") if case == "cpu" else torch.device("cuda", 0)
-    x = {"batch": {"gt_rgb": torch.zeros(2)}, "sc": torch.zeros(3)}
-    if case not in ("cpu", "input_elsewhere"):
-        x = pytree.tree_map(lambda t: t.as_subclass(_OnCuda0), x)
-    autocast = torch.is_autocast_enabled("cuda")
-    torch.set_autocast_enabled("cuda", case == "autocast")
-    try:
-        with torch.set_grad_enabled(case != "no_grad"), spans.tracing(case == "traced"):
-            got = SG.eligible(x, dev)
-    finally:
-        torch.set_autocast_enabled("cuda", autocast)
-    assert got == (case == "all_hold")
+def _on_the_card(monkeypatch):
+    """Stands in for the card in :func:`graphs.eligible`: the step's device
+    and inputs read as cuda:0, every other condition as it is."""
+    eligible = G.eligible
+    monkeypatch.setattr(G, "eligible", lambda device, leaves: eligible(
+        torch.device("cuda", 0), [t.as_subclass(_OnCuda0) for t in leaves]))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
 
 
 @pytest.mark.parametrize("case", ["plain", "cpu", "sharded", "remat", "traced", "hooked"])
@@ -149,20 +143,19 @@ def test_sharded_remat_traced_and_hooked_steps_run_eagerly(case, tmp_path, monke
     step and a step with a hook on the guidance each run eagerly."""
     from soar_tpu_torch.parallel import ViewMesh, view_sharder
 
-    if case != "cpu":
-        monkeypatch.setattr(SG, "on_the_card", lambda x, device: True)
-        monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
     graphed = []
 
     def fake_step(policy, key, seg, x, counts):
         graphed.append(key)
         return seg.eager(x)
 
-    monkeypatch.setattr(SG, "step", fake_step)
+    monkeypatch.setattr(G, "run", fake_step)
     options = {"sharded": dict(shard_views=view_sharder(ViewMesh(None, 0, 1,
                                                                  torch.device("cpu")))),
                "remat": dict(remat_gen=True)}.get(case, {})
     run, _, _, nets = _guided(tmp_path, **options)
+    if case != "cpu":
+        _on_the_card(monkeypatch)
     handle = None
     if case == "hooked":
         handle = nets.guidance.unet.register_forward_hook(lambda *a: None)
@@ -172,6 +165,7 @@ def test_sharded_remat_traced_and_hooked_steps_run_eagerly(case, tmp_path, monke
     try:
         with spans.tracing(case == "traced"):
             metrics = run()
+            counted = spans.counters()
     finally:
         if case == "sharded":
             dist.destroy_process_group()
@@ -179,6 +173,7 @@ def test_sharded_remat_traced_and_hooked_steps_run_eagerly(case, tmp_path, monke
             handle.remove()
     assert np.isfinite(float(metrics["loss"]))
     assert len(graphed) == (case == "plain"), case
+    assert bool(counted) == (case == "traced")  # a traced step's counters read
 
 
 class _FakeCapture:
@@ -188,20 +183,19 @@ class _FakeCapture:
     made = []
 
     def __init__(self, seg, x):
-        self.seg, self.spec = seg, pytree.tree_flatten(x)[1]
+        self.seg, self.x = seg, x
         _FakeCapture.made.append(self)
 
     def run(self, flat):
-        return self.seg.eager(pytree.tree_unflatten(flat, self.spec))
+        return self.seg.eager(G.rebuild(self.x, flat))
 
 
 def test_policy_eager_then_capture_then_replay_and_a_new_key_after_a_new_leaf(tmp_path,
                                                                                monkeypatch):
-    monkeypatch.setattr(SG, "on_the_card", lambda x, device: True)
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
-    monkeypatch.setattr(SG, "_Captured", _FakeCapture)
+    monkeypatch.setattr(G, "_Captured", _FakeCapture)
     _FakeCapture.made = []
     run, step, state, _ = _guided(tmp_path)
+    _on_the_card(monkeypatch)
     kinds = []
     for _ in range(3):
         before = _kinds(step)
@@ -220,8 +214,48 @@ def test_policy_eager_then_capture_then_replay_and_a_new_key_after_a_new_leaf(tm
     assert len(_FakeCapture.made) == 2
     # The capture replays what it was handed, the step inputs flattened.
     x = {"a": torch.ones(2), "b": {"c": torch.zeros(3)}}
-    assert SG.structure(x) == SG.structure(pytree.tree_map(torch.clone, x))
-    assert SG.structure(x) != SG.structure({"a": torch.ones(3), "b": {"c": torch.zeros(3)}})
+    assert G.structure(x) == G.structure(pytree.tree_map(torch.clone, x))
+    assert G.structure(x) != G.structure({"a": torch.ones(3), "b": {"c": torch.zeros(3)}})
+
+
+def test_a_step_counts_its_renders_and_a_view_with_autograd_counts_one(tmp_path, monkeypatch):
+    """The views' policy drops a capture unused over ``idle`` views rendered
+    with autograd on; an eager step counts each of its renders (4 gen views,
+    the GT pass and the normal pass), a view with autograd on counts one,
+    and a view without counts none."""
+    from soar_tpu_torch.avatar.renderer import RenderSettings, render_view
+    from soar_tpu_torch.train.trainer import make_gt_batch
+
+    monkeypatch.setattr(G, "VIEWS", G.Policy())
+    run, _, _, _ = _guided(tmp_path)
+    run()
+    assert G.VIEWS.grad_views == NV + 2
+    ds, params, model = _scene("cpu")
+    cam = make_gt_batch(ds, model, 0, device="cpu")["gt_cam"]
+    for grad, count in ((True, NV + 3), (False, NV + 3)):
+        with torch.set_grad_enabled(grad):
+            render_view(params, model, cam, ds.image_size, torch.ones(3), 0, RenderSettings())
+        assert G.VIEWS.grad_views == count
+
+
+def test_graphs_imports_nothing_from_avatar_train_or_guidance():
+    """The graphs module sits in the render layer: it imports torch, the
+    spans and the composite's wrappers, and nothing above them."""
+    path = G.__file__
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            mod = importlib.util.resolve_name("." * node.level + (node.module or ""),
+                                              "soar_tpu_torch.render")
+            names += [f"{mod}.{a.name}" for a in node.names]
+    ours = sorted(n for n in names if n.startswith("soar_tpu_torch"))
+    assert ours == ["soar_tpu_torch.core.spans", "soar_tpu_torch.render.block_composite"], ours
+    assert not [n for n in names if any(p in n.split(".") for p in ("avatar", "train",
+                                                                    "guidance"))]
 
 
 # ------------------------------------------------------ the per-step scalars
@@ -449,6 +483,8 @@ def test_counters_read_the_eager_step_one_capture_and_the_replays_and_traced_ste
     assert _kinds(step) == (1, 1, n - 2)
     with spans.tracing():
         run()
+        ctr = spans.counters()
     assert _kinds(step) == (1, 1, n - 2)  # traced: the plain eager path, uncounted
+    assert ctr["raster.keys"]["soar.raster.sort"] > 0  # its spans and counters read
     run()
     assert _kinds(step) == (1, 1, n - 1)

@@ -1,8 +1,8 @@
-"""A view replayed from CUDA graphs (``soar_tpu_torch.avatar.view_graph``)
-and the literals hoisted out of ``render_view`` so that it can be captured.
+"""A view replayed from CUDA graphs (``soar_tpu_torch.render.graphs``) and
+the literals hoisted out of ``render_view`` so that it can be captured.
 
-On the CPU: which calls take the graph path, the capture policy (a fake
-capture), and the hoisted constants equal to the literals they replace.
+On the CPU: which views and steps take the graph path, the capture policy,
+the keys, and the hoisted constants equal to the literals they replace.
 The tests marked ``cuda`` run on the card (this file imports no JAX):
 
     python -m pytest tests/test_torch_view_graph.py --noconftest -q
@@ -21,14 +21,15 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from soar_tpu_torch.avatar import renderer as R
-from soar_tpu_torch.avatar import view_graph as VG
 from soar_tpu_torch.avatar.renderer import RenderSettings, render_view
 from soar_tpu_torch.core import spans
 from soar_tpu_torch.core.camera import Camera
 from soar_tpu_torch.core.constants import constant
 from soar_tpu_torch.field import hashgrid
+from soar_tpu_torch.render import graphs as G
 from soar_tpu_torch.render.tilegrid import quantize_depth
 from soar_tpu_torch.render.types import RasterConfig
+from soar_tpu_torch.train import trainer
 
 SETTINGS = {
     "turntable": RenderSettings(use_explicit=False),
@@ -89,38 +90,10 @@ def _scene(device, size=48, subdiv=1, frames=2, gen_view=False):
 # ------------------------------------------------------------ the path choice
 
 
-def _stand_in_cuda():
-    return types.SimpleNamespace(is_cuda=True, device=torch.device("cuda", 0))
-
-
 def _inputs(device="cpu"):
     cam = Camera(*(torch.full((2,), float(i), device=device) for i in range(6)))
     fp = {"betas": torch.zeros(1, 4, device=device), "transl": torch.ones(1, 3, device=device)}
     return fp, cam, torch.ones(3, device=device), None
-
-
-@pytest.mark.parametrize("case", ["cpu", "grad", "rows", "plain", "autocast", "capturing",
-                                  "traced", "input_elsewhere", "other_device", "all_hold"])
-def test_eligible_only_without_autograd_on_cuda(case, monkeypatch):
-    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: case == "capturing")
-    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1 if case == "other_device" else 0)
-    x = torch.zeros(3) if case == "cpu" else _stand_in_cuda()
-    cfg = RasterConfig(composite="plain") if case == "plain" else RasterConfig()
-    rows = object() if case == "rows" else None
-    # A stand-in for inputs on the view's device: a tensor whose device is
-    # compared as cuda:0 (the CPU tensors of "input_elsewhere" are not).
-    inputs = _inputs()
-    if case != "input_elsewhere":
-        inputs = ({k: _stand_in_tensor() for k in inputs[0]},
-                  Camera(*(_stand_in_tensor() for _ in inputs[1])), _stand_in_tensor(), None)
-    autocast = torch.is_autocast_enabled("cuda")
-    torch.set_autocast_enabled("cuda", case == "autocast")
-    try:
-        with torch.set_grad_enabled(case == "grad"), spans.tracing(case == "traced"):
-            got = VG.eligible(x, inputs, cfg, rows)
-    finally:
-        torch.set_autocast_enabled("cuda", autocast)
-    assert got == (case == "all_hold")
 
 
 class _OnCuda0(torch.Tensor):
@@ -131,8 +104,57 @@ class _OnCuda0(torch.Tensor):
         return torch.device("cuda", 0)
 
 
-def _stand_in_tensor():
-    return torch.zeros(1).as_subclass(_OnCuda0)
+def _on_cuda0(tree):
+    """``tree`` with its tensors stood in for by ones on cuda:0."""
+    return G.rebuild(tree, [t.as_subclass(_OnCuda0) for t in G.leaves(tree)])
+
+
+VIEW_CASES = ["cpu", "grad", "rows", "plain", "autocast", "capturing", "traced",
+              "input_elsewhere", "other_device", "all_hold"]
+STEP_CASES = ["cpu", "no_grad", "autocast", "capturing", "traced", "input_elsewhere",
+              "other_device", "all_hold"]
+
+
+def _view_graphed(case):
+    """A view's choice: autograd off, the composite kernel and no rows,
+    beside the shared conditions."""
+    dev = torch.device("cpu") if case == "cpu" else torch.device("cuda", 0)
+    params = types.SimpleNamespace(xyz=types.SimpleNamespace(device=dev))
+    raster = RasterConfig(composite="plain") if case == "plain" else RasterConfig()
+    inputs = _inputs() if case in ("cpu", "input_elsewhere") else _on_cuda0(_inputs())
+    with torch.set_grad_enabled(case == "grad"):
+        return R._graphed(params, inputs, RenderSettings(raster=raster),
+                          object() if case == "rows" else None)
+
+
+def _step_graphed(case):
+    """A step's choice: autograd on, beside the shared conditions."""
+    dev = torch.device("cpu") if case == "cpu" else torch.device("cuda", 0)
+    x = {"batch": {"gt_rgb": torch.zeros(2)}, "sc": torch.zeros(3)}
+    if case not in ("cpu", "input_elsewhere"):
+        x = _on_cuda0(x)
+    with torch.set_grad_enabled(case != "no_grad"):
+        return trainer._graphed(dev, x)
+
+
+@pytest.mark.parametrize("caller,case", [("view", c) for c in VIEW_CASES]
+                         + [("step", c) for c in STEP_CASES])
+def test_eligible_only_on_the_card_with_tracing_off_and_each_callers_autograd(caller, case,
+                                                                              monkeypatch):
+    """The shared conditions (:func:`graphs.eligible`: the current CUDA
+    device with every input on it, autocast, tracing and capture off) and
+    each caller's own: a view without autograd, with the composite kernel
+    and no rows; a step with autograd."""
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: case == "capturing")
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1 if case == "other_device" else 0)
+    autocast = torch.is_autocast_enabled("cuda")
+    torch.set_autocast_enabled("cuda", case == "autocast")
+    try:
+        with spans.tracing(case == "traced"):
+            got = (_view_graphed if caller == "view" else _step_graphed)(case)
+    finally:
+        torch.set_autocast_enabled("cuda", autocast)
+    assert got == (case == "all_hold")
 
 
 @pytest.mark.parametrize("grad", [False, True])
@@ -140,7 +162,7 @@ def test_cpu_views_run_eagerly(grad, monkeypatch):
     def refuse(*a, **k):
         raise AssertionError("a CPU view took the graph path")
 
-    monkeypatch.setattr(VG, "render", refuse)
+    monkeypatch.setattr(G, "run", refuse)
     params, model, cam, size = _scene("cpu")
     with torch.set_grad_enabled(grad):
         out = render_view(params, model, cam, size, torch.ones(3), 0, SETTINGS["turntable"])
@@ -148,7 +170,7 @@ def test_cpu_views_run_eagerly(grad, monkeypatch):
 
 
 def test_policy_captures_a_key_on_its_second_call():
-    pol = VG.Policy()
+    pol = G.Policy()
     assert pol.lookup("a") == (None, "eager")
     assert pol.lookup("a") == (None, "capture")
     made = object()
@@ -159,7 +181,7 @@ def test_policy_captures_a_key_on_its_second_call():
 
 
 def test_policy_holds_two_captures_least_recently_used_first_out():
-    pol = VG.Policy(held=2)
+    pol = G.Policy(held=2)
     for n, key in enumerate("abc"):
         pol.lookup(key)
         assert pol.lookup(key)[1] == "capture"
@@ -172,7 +194,7 @@ def test_policy_holds_two_captures_least_recently_used_first_out():
 
 
 def test_policy_remembers_a_bounded_number_of_one_offs():
-    pol = VG.Policy(held=2, remembered=3)
+    pol = G.Policy(held=2, remembered=3)
     for key in range(5):
         pol.lookup(key)
     assert list(pol.seen) == [2, 3, 4]
@@ -183,7 +205,7 @@ def test_policy_remembers_a_bounded_number_of_one_offs():
 def test_policy_drops_a_capture_unused_over_idle_grad_views():
     """A training process's validation view is dropped after ``idle``
     training views without it; a view replayed in every step is kept."""
-    pol = VG.Policy(idle=4)
+    pol = G.Policy(idle=4)
     for key in ("val", "sds"):
         pol.lookup(key), pol.lookup(key)
         pol.hold(key, key)
@@ -199,17 +221,19 @@ def test_policy_drops_a_capture_unused_over_idle_grad_views():
 def test_inputs_flatten_and_key_by_address_only_where_held():
     params, model, _, _ = _scene("cpu")
     inputs = _inputs()
-    leaves = VG._leaves(inputs)
+    leaves = G.leaves(inputs)
     assert len(leaves) == 9
-    back = VG._rebuild(inputs, [t.clone() for t in leaves])
+    back = G.rebuild(inputs, [t.clone() for t in leaves])
     assert isinstance(back[1], Camera) and back[3] is None
-    assert all(torch.equal(a, b) and a is not b for a, b in zip(leaves, VG._leaves(back)))
+    assert all(torch.equal(a, b) and a is not b for a, b in zip(leaves, G.leaves(back)))
     attrs = {"colors": torch.zeros(5, 3)}
     with_attrs = inputs[:3] + (attrs,)
-    assert VG._rebuild(with_attrs, VG._leaves(with_attrs))[3] == attrs
+    assert G.rebuild(with_attrs, G.leaves(with_attrs))[3] == attrs
 
     def key(inputs):
-        return VG._key(params, model, ((48, 48), RenderSettings()), inputs, VG._leaves(inputs))
+        """What a view's capture is keyed by (:func:`graphs.run`)."""
+        return (((48, 48), RenderSettings(), R.avatar_key(params, model)), G.structure(inputs),
+                G.tf32_key())
 
     # Copied inputs key by shape and dtype, not by address or value ...
     assert key(inputs) == key(_inputs()) == key(back)
@@ -290,7 +314,7 @@ def _cuda():
 
 @pytest.fixture
 def fresh_policy(monkeypatch):
-    monkeypatch.setattr(VG, "_POLICY", VG.Policy())
+    monkeypatch.setattr(G, "VIEWS", G.Policy())
 
 
 def _turn(i, n=36):
@@ -314,7 +338,7 @@ def test_replayed_views_equal_the_eager_path_to_the_bit(name, fresh_policy):
     params, model, cam, size = _scene("cuda", size=128, subdiv=3, gen_view=st.gen_view)
     assert params.xyz.shape[0] > 3000
     bg = torch.ones(3, device="cuda")
-    replays = VG.render.replays
+    replays = render_view.replays
     for i in range(36):
         with torch.no_grad():
             got = render_view(params, model, cam, size, bg, 0, st, smpl_override=_turn(i))
@@ -324,7 +348,7 @@ def test_replayed_views_equal_the_eager_path_to_the_bit(name, fresh_policy):
             assert set(g) == set(w)
             for k in g:
                 assert _same(g[k], w[k] if w[k] is None else w[k].detach()), (name, i, k)
-    assert VG.render.replays - replays == 34  # the first call eager, the second captured
+    assert render_view.replays - replays == 34  # the first call eager, the second captured
     assert float(_outs(got)[0]["mask"].sum()) > 100  # the body is in view
 
 
@@ -361,15 +385,15 @@ def test_in_place_update_shows_and_a_replaced_tensor_recaptures(fresh_policy):
     before = view()
     with torch.no_grad():
         params.field.mlp_shs[-1].bias.add_(0.5)  # what an optimizer step does
-    n = (VG.render.eager, VG.render.captures, VG.render.replays)
+    n = (render_view.eager, render_view.captures, render_view.replays)
     after = view()
-    assert (VG.render.eager, VG.render.captures, VG.render.replays) == (n[0], n[1], n[2] + 1)
+    assert (render_view.eager, render_view.captures, render_view.replays) == (n[0], n[1], n[2] + 1)
     assert not torch.equal(before["render"], after["render"])
     assert all(torch.equal(after[k], v) for k, v in view(grad=True).items())
 
     params.occ = torch.nn.Parameter(params.occ.detach() * 0.5)  # a new tensor
     view(), view()
-    assert (VG.render.eager, VG.render.captures) == (n[0] + 1, n[1] + 1)
+    assert (render_view.eager, render_view.captures) == (n[0] + 1, n[1] + 1)
     assert all(torch.equal(view()[k], v) for k, v in view(grad=True).items())
 
 
@@ -397,11 +421,11 @@ def test_each_replay_launches_its_composites_through_the_wrapper(name, fresh_pol
         bc._launch_fwd = wrapped
         try:
             for i in range(5):
-                n = (VG.render.eager, VG.render.captures, VG.render.replays)
+                n = (render_view.eager, render_view.captures, render_view.replays)
                 render_view(params, model, cam, size, bg, 0, SETTINGS[name],
                             smpl_override=_turn(i))
                 kinds.append(tuple(b - a for a, b in zip(n, (
-                    VG.render.eager, VG.render.captures, VG.render.replays))))
+                    render_view.eager, render_view.captures, render_view.replays))))
                 assert len(seen) == (i + 1) * LAUNCHES[name], (name, i)
         finally:
             bc._launch_fwd = launch
@@ -435,12 +459,12 @@ def test_counters_read_the_warm_up_one_capture_and_the_replays(fresh_policy):
     params, model, cam, size = _scene("cuda", size=128, subdiv=3)
     bg = torch.ones(3, device="cuda")
     n = 6
-    before = (VG.render.eager, VG.render.captures, VG.render.replays)
+    before = (render_view.eager, render_view.captures, render_view.replays)
     with torch.no_grad():
         for i in range(n + 1):
             render_view(params, model, cam, size, bg, 0, SETTINGS["turntable"],
                         smpl_override=_turn(i))
-    after = (VG.render.eager, VG.render.captures, VG.render.replays)
+    after = (render_view.eager, render_view.captures, render_view.replays)
     assert tuple(b - a for a, b in zip(before, after)) == (1, 1, n - 1)
 
 
@@ -456,13 +480,13 @@ def test_a_traced_view_runs_eagerly_with_its_spans(fresh_policy):
     with torch.no_grad():
         for i in range(3):
             want = render_view(params, model, cam, size, bg, 0, st, smpl_override=ov)
-        assert len(VG._POLICY.graphs) == 1
-        before = (VG.render.eager, VG.render.captures, VG.render.replays)
+        assert len(G.VIEWS.graphs) == 1
+        before = (render_view.eager, render_view.captures, render_view.replays)
         with spans.tracing():
             got = [render_view(params, model, cam, size, bg, 0, st, smpl_override=ov)
                    for _ in range(3)]
             ctr = spans.counters()
-    assert (VG.render.eager, VG.render.captures, VG.render.replays) == before
+    assert (render_view.eager, render_view.captures, render_view.replays) == before
     assert ctr["raster.keys"]["soar.raster.sort"] > 0
     assert not ctr.get("host_syncs")
     for g in got:
