@@ -3058,17 +3058,21 @@ DREAMER_LOSS_RTOL = 1e-3
 # The text-only 4-view UNet (sd-v2.1-base-4view): the ImageDream UNet
 # without its image-prompt branch.
 UNET_PARAMS_MV = 867_572_164
-DREAMER_HOST_OPS_STEP, DREAMER_PROFILE_STEP = 1, 3
+# Step 0 runs eagerly and step 1 captures the loss step's CUDA graphs; the
+# counted and profiled steps replay them.
+DREAMER_HOST_OPS_STEP, DREAMER_PROFILE_STEP = 2, 3
+DREAMER_UNTIMED = (0, 1, DREAMER_HOST_OPS_STEP, DREAMER_PROFILE_STEP)
 
 
 def run_dreamer(params, model, device):
     """The GaussianDreamer system (``train.systems.make_gaussiandreamer_step``)
     at full width: 6 steps with densify and prune, counted (8 forward and 4
-    backward launches a step), one loss step under host_ops (no host sync,
-    no op on the CPU) and one profiled; the alive count after each
-    ``maintain``; a step's launches recorded, replayed and held against
-    their plain versions at C = 4; the kernel step against the plain one
-    with float32 networks; a gradient on the opacity logits; dead slots
+    backward launches a step), the loss step eager once, captured once
+    across the densifies and replayed after, one replayed step under
+    host_ops (no host sync, no op on the CPU) and one profiled; the alive
+    count after each ``maintain``; a step's launches recorded, replayed and
+    held against their plain versions at C = 4; the kernel step against the
+    plain one with float32 networks; a gradient on the opacity logits; dead slots
     never counted visible; parameters and Adam moments finite."""
     import dataclasses
 
@@ -3168,14 +3172,17 @@ def run_dreamer(params, model, device):
     check(alive_counts[first] > alive_counts[first - 1] == N and max(alive_counts) <= cap,
           f"dreamer: alive counts {alive_counts} (from {N}, capacity {cap})")
     check(alive_counts[first] < cap, f"dreamer: the first densify filled every dead slot")
+    kinds = (loss_step.eager, loss_step.captures, loss_step.replays)
+    if device == "cuda":
+        check(kinds == (1, 1, DREAMER_STEPS - 2),
+              f"dreamer: loss step eager / captures / replays {kinds}")
     cpu_compute, cpu_moves, n_ops, n_syncs = host
     check(not cpu_compute, f"dreamer: an op of the loss step computed on the CPU: {cpu_compute}")
     check(n_syncs == 0, f"dreamer: {n_syncs} host syncs inside loss_step")
     busy = prof["device_busy_ms"]
     check(busy > 0 and prof["composite_fwd_ms"] > 0 and prof["composite_bwd_ms"] > 0,
           "dreamer: the profiler saw no kernel")
-    timed_ms = [x for i, x in enumerate(step_ms)
-                if i not in (0, DREAMER_HOST_OPS_STEP, DREAMER_PROFILE_STEP)]
+    timed_ms = [x for i, x in enumerate(step_ms) if i not in DREAMER_UNTIMED]
     ms = float(np.median(timed_ms))
     prof["idle_share"] = 1.0 - busy / prof["profiled_wall_ms"]
     check(dead_denom == 0.0, f"dreamer: a dead slot was counted visible ({dead_denom})")
@@ -3185,14 +3192,15 @@ def run_dreamer(params, model, device):
     check(finite, "dreamer: a parameter or an Adam moment is not finite")
     print(f"[dreamer] {N} surfels at capacity {cap}, 4 views 256x256, K=96, surface off, "
           f"sigmoid opacities, bf16 mock MVDream (UNet {n_unet} parameters, text only): "
-          f"{ms:.3f} ms/step (CUDA events, synced; median of steps {[i for i in range(DREAMER_STEPS) if i not in (0, DREAMER_HOST_OPS_STEP, DREAMER_PROFILE_STEP)]}), "
+          f"{ms:.3f} ms/step (CUDA events, synced; median of steps {[i for i in range(DREAMER_STEPS) if i not in DREAMER_UNTIMED]}), "
           f"per step {[round(x, 3) for x in step_ms]}; launches fwd {fwd}, bwd {bwd} "
           f"({DREAMER_FWD_PER_STEP} and {DREAMER_BWD_PER_STEP} a step); peak memory "
           f"{peak_gib:.3f} GiB")
     print(f"[dreamer] first densify at step {first}: {eligible}, threshold {threshold:.4g} "
           f"(quantile {DREAMER_THRESHOLD_QUANTILE}); alive after each maintain {alive_counts}; "
           f"losses {[round(r['loss'], 6) for r in metrics]}")
-    print(f"[dreamer] loss step: {n_ops} aten ops, {n_syncs} host syncs, none on the CPU "
+    print(f"[dreamer] loss step: eager {kinds[0]}, captures {kinds[1]}, replays {kinds[2]}; "
+          f"replayed: {n_ops} aten ops, {n_syncs} host syncs, none on the CPU "
           f"(transfers {cpu_moves}); profiled: device busy {busy:.3f} ms in "
           f"{prof['device_kernels']} device ops (composite_fwd {prof['composite_fwd_ms']:.3f} ms, "
           f"composite_bwd {prof['composite_bwd_ms']:.3f} ms), wall "
@@ -3272,7 +3280,8 @@ def run_dreamer(params, model, device):
             "profile": prof, "aten_ops": n_ops, "host_syncs": n_syncs,
             "main_path": main_path, "vs_plain": vs_plain,
             "kernel_vs_plain": {"loss_rel": loss_rel, "grad_rel_l2": grad_rel},
-            "max_abs_opacity_grad": opac_max, "unet_params": n_unet}
+            "max_abs_opacity_grad": opac_max, "unet_params": n_unet,
+            "loss_step_kinds": dict(zip(("eager", "captures", "replays"), kinds))}
 
 
 # ------------------------------------------------------------ preprocessing

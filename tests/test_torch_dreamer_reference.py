@@ -40,17 +40,6 @@ def _rel(a, b):
     return float(torch.linalg.norm(a - b) / max(float(torch.linalg.norm(b)), 1e-30))
 
 
-def _threshold(s):
-    """A densify threshold in the widest relative gap of the seen surfels'
-    mean position gradients between their 50th and 90th percentiles."""
-    st = s.dstate
-    gp = (st.xyz_grad_accum / st.denom.clamp_min(1.0))[st.alive & (st.denom > 0)]
-    v = np.unique(gp.double().numpy())
-    lo, hi = int(0.5 * len(v)), int(0.9 * len(v))
-    i = lo + int(np.argmax(v[lo + 1:hi + 1] / v[lo:hi]))
-    return float(np.sqrt(v[i] * v[i + 1])), float(v[i + 1] / v[i])
-
-
 def _run(side, autocast=False, threshold=None):
     s = H.build("reference" if side == "control" else side)
     C = s.params.xyz.shape[0]
@@ -65,7 +54,7 @@ def _run(side, autocast=False, threshold=None):
             out["grad"] = {k: p.grad.clone() for k, p in H.leaves(s.opt).items()
                            if p.grad is not None and bool(p.grad.any())}
     if threshold is None:
-        threshold, out["gap"] = _threshold(s)
+        threshold, out["gap"] = H.gap_threshold(s)
     H.with_threshold(s, threshold, extent=EXTENT)
     before = s.dstate.alive.clone()
     with torch.autocast("cpu", dtype=torch.bfloat16, enabled=autocast):

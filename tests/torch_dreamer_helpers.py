@@ -12,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 import types
 
+import numpy as np
 import torch
 
 from benchmark import cell as BC
@@ -88,6 +89,19 @@ def with_threshold(s, threshold: float, **kw):
     s.cfg = dataclasses.replace(s.cfg, densify_grad_threshold=threshold, **kw)
     _, s.maintain = s.m.systems.make_gaussiandreamer_step(s.model, s.cfg, s.opt, s.guidance)
     return s
+
+
+def gap_threshold(s):
+    """A densify threshold in the widest relative gap of ``s``'s seen
+    surfels' mean position gradients between their 50th and 90th
+    percentiles, and that gap's ratio: no surfel's decision rests on
+    round-off."""
+    st = s.dstate
+    gp = (st.xyz_grad_accum / st.denom.clamp_min(1.0))[st.alive & (st.denom > 0)]
+    v = np.unique(gp.double().cpu().numpy())
+    lo, hi = int(0.5 * len(v)), int(0.9 * len(v))
+    i = lo + int(np.argmax(v[lo + 1:hi + 1] / v[lo:hi]))
+    return float(np.sqrt(v[i] * v[i + 1])), float(v[i + 1] / v[i])
 
 
 def draws(n_steps: int, capacity: int, latent_size: int, side: str = "port", device="cpu"):
