@@ -15,7 +15,18 @@
    backward composite at the training step's K=64 (NT=1024 and 256; two
    launches on the same inputs must be bit-equal); the count-bounded tile
    composite at K=96 with per-tile counts over 0..K is checked with its
-   path (5), after the views are timed.
+   path (5), after the views are timed.  The hash encoding
+   (``csrc/hash_encode.cu``) at the published grid, at the turntable's
+   125,664 points and the dreamer's 251,328 (cell mode) and at 125,664 in
+   corner mode: the forward bit-stable across calls and within HASH_TOL of
+   the plain version, the table's gradient within one bf16 ulp, the kernel
+   alone forward and backward (``device_ms``, ``bwd_device_ms``) against
+   its byte bound (the distinct rows the points touch), the wrapper call
+   and the plain version.  In the turntable (4), the training runs (8, 10)
+   and the dreamer (14) the hash kernel's counters are set to 0 just
+   before the counted run and held to its exact launches at each eager or
+   capture call (``HASH_PER_CALL``; a replay adds none), and no plain
+   call.
 4. Drives the port's turntable (``soar_tpu_torch.cli.render_rot.
    run_turntable``) at full width — the 125,664-surfel procedural scene,
    16-level 2^18 hash field, 512x512 renders — with every launch counter
@@ -154,7 +165,9 @@
    ``{"kernels": [...]}`` line (the block composites with the summed
    device ms and bound of their recorded main-path launches,
    ``main_path_ms`` and ``main_path_bound_ms``, and their launches per step
-   or view of the counted runs, ``main_path_launches``), then
+   or view of the counted runs, ``main_path_launches``; the hash encoding
+   with its launches in each counted run and per eager or capture call,
+   its device ms and bound alone), then
    as the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -473,6 +486,126 @@ def check_composite_kernel(C, seed):
           f"kernel {ms:.4f} ms (device alone {device_ms:.4f} ms), plain {plain_ms:.4f} ms, bound "
           f"{out['bound_ms']:.4f} ms ({out['bound_by']}); library call: none (no single "
           f"PyTorch op computes it)")
+    return out
+
+
+# The hash encodes of the main paths: the turntable's 125,664 surfels and the
+# dreamer's static capacity, at the published grid (16 levels, 2^18 rows).
+HASH_POINTS = (125_664, 251_328)
+# |kernel - plain| allowed on the encoding: float32 round-off of the 8-term
+# sum of table values of ~1e-4 (init_hash_grid's scale), far below it; a
+# wrong row or weight is of the values' size.
+HASH_TOL = 1e-9
+
+
+def hash_bound_ms(pos, cfg, backward):
+    """Least time of one encode of positions ``pos`` [N, 3]: the forward
+    reads the positions, writes the output and reads each table row that
+    some (point, level) touches once (distinct rows; in corner mode, whose
+    8-byte rows are narrower than a 32-byte DRAM sector, distinct sectors);
+    the table's gradient writes the whole dense table once and reads the
+    cotangents and the positions."""
+    from soar_tpu_torch.field import hashgrid as hg
+
+    n, L, F, W = pos.shape[0], cfg.num_levels, cfg.features_per_level, cfg.row_width
+    io = 4 * (3 * n + n * L * F)
+    if backward:
+        return 1e3 * (io + 4 * L * cfg.table_size * W) / H100_BYTES_PER_S
+    row_bytes = 4 * W
+    per_sector = max(1, 32 // row_bytes)
+    flat_idx, _ = hg._lookup(pos, cfg)
+    touched = torch.unique(flat_idx // per_sector).numel()
+    return 1e3 * (io + touched * max(row_bytes, 32)) / H100_BYTES_PER_S
+
+
+# The hash kernel's launches (forward, backward) at each eager or capture
+# call of a main path; a replayed call launches inside its graph and adds no
+# count.  A view and the dreamer's loss step only read the field (a query
+# encodes both tables; the dreamer's step makes four queries); a training
+# step's backward reaches the shared table alone, since no render reads
+# the quats' head.
+HASH_PER_CALL = {"view": (2, 0), "train_step": (2, 1), "guided_step": (2, 1),
+                 "dreamer_step": (8, 0)}
+
+
+def zero_hash_counts():
+    from soar_tpu_torch.field.hashgrid import hash_encode
+
+    hash_encode.kernel = hash_encode.kernel_bwd = hash_encode.eager = 0
+
+
+def check_hash_counts(path, calls):
+    """The hash kernel's launches since :func:`zero_hash_counts` on a main
+    path of which ``calls`` eager or capture calls ran: HASH_PER_CALL[path]
+    each, and no plain call."""
+    from soar_tpu_torch.field.hashgrid import hash_encode
+
+    fwd, bwd = HASH_PER_CALL[path]
+    got = (hash_encode.kernel, hash_encode.kernel_bwd, hash_encode.eager)
+    check(calls > 0 and got == (fwd * calls, bwd * calls, 0),
+          f"{path}: hash kernel launches (forward, backward, plain) {got} in {calls} eager "
+          f"or capture calls, want ({fwd}, {bwd}, 0) a call")
+    return {"fwd": got[0], "bwd": got[1], "calls": calls}
+
+
+def check_hash_encode_kernel(mode="cell", points=HASH_POINTS):
+    """csrc/hash_encode.cu against hash_encode_plain at the published grid:
+    the forward (bit-equal across two calls) and the table's gradient
+    (within one bf16 ulp of each entry plus float32 round-off); the kernel
+    alone (forward; backward with its zeroing and rounding pass), the
+    wrapper call and the plain version's forward and backward."""
+    from soar_tpu_torch.field import hashgrid as hg
+
+    cfg = hg.HashGridConfig(mode=mode)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    table = hg.init_hash_grid(gen, cfg, "cuda")
+    out = {}
+    for n in points:
+        pos = torch.rand((n, 3), generator=gen, device="cuda")
+        args = hg.launch_args(n, cfg)
+        got = hg.hash_encode(table, pos, cfg)
+        check(torch.equal(got, hg.hash_encode(table, pos, cfg)),
+              f"hash_encode {mode} N={n}: two calls differ")
+        want = hg.hash_encode_plain(table, pos, cfg)
+        err = float((got - want).abs().max())
+        go = torch.randn(got.shape, generator=gen, device="cuda")
+        leaf = table.clone().requires_grad_()
+        hg.hash_encode(leaf, pos, cfg).backward(go)
+        ref = table.clone().requires_grad_()
+        hg.hash_encode_plain(ref, pos, cfg).backward(go)
+        gdiff = (leaf.grad - ref.grad).abs()
+        ulp = torch.ldexp(torch.ones_like(ref.grad), torch.frexp(ref.grad)[1] - 8)
+        beyond = int((gdiff > ulp * (ref.grad != 0) + 2.0**-18 * ref.grad.abs().amax()).sum())
+        res = torch.empty_like(got)
+        grad_table = torch.empty_like(table)
+        device_ms = kernel_ms(lambda: hg._launch(cfg, args, pos, table=table, out=res), 50)
+        bwd_ms = kernel_ms(lambda: hg._launch(cfg, args, pos, grad_out=go,
+                                              grad_table=grad_table), 50)
+        with torch.no_grad():
+            ms = cuda_ms(lambda: hg.hash_encode(table, pos, cfg), 50)
+            plain_ms = cuda_ms(lambda: hg.hash_encode_plain(table, pos, cfg), 10)
+
+        def plain_bwd():
+            t = table.detach().requires_grad_()
+            hg.hash_encode_plain(t, pos, cfg).backward(go)
+
+        plain_bwd_ms = cuda_ms(plain_bwd, 5)
+        rec = {"mode": mode, "N": n, "max_abs_err": err,
+               "grad_max_abs_err": float(gdiff.max()), "device_ms": device_ms,
+               "bwd_device_ms": bwd_ms, "ms": ms, "plain_ms": plain_ms,
+               "plain_bwd_ms": plain_bwd_ms, "bound_ms": hash_bound_ms(pos, cfg, False),
+               "bwd_bound_ms": hash_bound_ms(pos, cfg, True)}
+        out[n] = rec
+        print(f"[hash_encode {mode} N={n}] max|kernel-plain| {err:.3g}, table gradient "
+              f"{rec['grad_max_abs_err']:.3g} ({beyond} entries beyond one bf16 ulp); kernel "
+              f"alone forward "
+              f"{device_ms:.4f} ms (bound {rec['bound_ms']:.4f}, distinct rows' bytes), backward "
+              f"{bwd_ms:.4f} ms (bound {rec['bwd_bound_ms']:.4f}); wrapper call {ms:.4f} ms; "
+              f"plain forward {plain_ms:.4f} ms, forward and backward {plain_bwd_ms:.4f} ms")
+        check(err <= HASH_TOL, f"hash_encode {mode} N={n}: max|kernel-plain| {err:.3g}")
+        check(beyond == 0, f"hash_encode {mode} N={n}: {beyond} gradient entries beyond one "
+              "bf16 ulp")
+        del got, want, leaf, ref, gdiff, ulp, res, grad_table
     return out
 
 
@@ -902,6 +1035,7 @@ def slice_views(ds, params, model, device):
 
 
 def run_slice(ds, params, model, views, ov, device):
+    from soar_tpu_torch.avatar.renderer import render_view
     from soar_tpu_torch.cli.render_rot import run_turntable
     from soar_tpu_torch.render import block_composite
 
@@ -910,11 +1044,15 @@ def run_slice(ds, params, model, views, ov, device):
     # ---- the main path, counted: launch counters 0 just before, read after
     with tempfile.TemporaryDirectory() as out_dir:
         block_composite.composite_block.launches = 0
+        zero_hash_counts()
+        python_views = render_view.eager + render_view.captures
         t0 = time.perf_counter()
         outs = run_turntable(out_dir, ds, params, model, False, NUM_VIEWS, device=device)
         torch.cuda.synchronize()
         turntable_s = time.perf_counter() - t0
         launches = block_composite.composite_block.launches
+        hash_launches = check_hash_counts(
+            "view", render_view.eager + render_view.captures - python_views)
         pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
     check(launches == 2 * NUM_VIEWS,
           f"composite kernel launched {launches} times, want {2 * NUM_VIEWS}")
@@ -936,7 +1074,8 @@ def run_slice(ds, params, model, views, ov, device):
         coverage.append(cover_px)
         overflow.append([int(x) for x in out["overflow"].cpu()])
     print(f"[slice] run_turntable {NUM_VIEWS} views: {turntable_s:.3f} s incl. png "
-          f"writes; composite launches {launches}; overflow [dropped, capped] per "
+          f"writes; composite launches {launches}; hash kernel launches "
+          f"{hash_launches}; overflow [dropped, capped] per "
           f"view {overflow}; mask>0.5 pixels per view {coverage}")
 
     # ---- per-view time and kernel vs plain, at bench.py's camera and at
@@ -945,6 +1084,7 @@ def run_slice(ds, params, model, views, ov, device):
                for label, cam in views.items()}
     return {
         "surfels": N, "turntable_s": turntable_s, "launches": launches,
+        "hash_launches": hash_launches,
         "overflow": overflow, "mask_pixels": coverage, "views": reports,
     }
 
@@ -1268,6 +1408,7 @@ def run_training(ds, params, model, device, lpips_path):
         ts.cfg, ts.stage, ts.raster, ts.sizes, ts.state, ts.opt, ts.step)
     batches, gen, frames, one_step = ts.batches, ts.gen, ts.frames, ts.one_step
 
+    zero_hash_counts()
     with timed("train: 2 warm-up steps"):
         for _ in range(WARMUP_STEPS - 1):
             one_step()
@@ -1294,6 +1435,7 @@ def run_training(ds, params, model, device, lpips_path):
         torch.cuda.synchronize()
     fwd = block_composite.composite_block.launches
     bwd = block_composite.composite_block.bwd_launches
+    hash_launches = check_hash_counts("train_step", step.eager + step.captures)
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TRAIN_STEPS)]
     ms = sum(step_ms) / TRAIN_STEPS
     check(fwd == FWD_PER_STEP * TRAIN_STEPS,
@@ -1466,7 +1608,8 @@ def run_training(ds, params, model, device, lpips_path):
     return {
         "main_path": main_path,
         "ms_per_step": ms, "step_ms": step_ms, "launches_fwd": fwd, "launches_bwd": bwd,
-        "losses": rows, "groups_changed": sorted(changed), "peak_memory_gib": peak_gib,
+        "hash_launches": hash_launches, "losses": rows, "groups_changed": sorted(changed),
+        "peak_memory_gib": peak_gib,
         "profile": prof, "phase_ms": phase_ms, "aten_ops_per_step": n_ops,
         "host_syncs_per_step": n_syncs,
         "cpu_transfers_per_step": cpu_moves, "kernel_vs_plain": {
@@ -1712,6 +1855,7 @@ def run_guided_training(ds, params, model, device, g, ip_table, lpips_path):
         draws = sample_step_draws(draw_gen, cfg, latent_size=g.latent_size)
         return fn(state, batches[frames.randint(len(batches))], draws)
 
+    zero_hash_counts()
     with timed("guided: 2 warm-up steps"):
         for _ in range(WARMUP_STEPS):
             one_step()
@@ -1729,6 +1873,7 @@ def run_guided_training(ds, params, model, device, g, ip_table, lpips_path):
             ev[i + 1].record()
         torch.cuda.synchronize()
     fwd, bwd = bc.launches, bc.bwd_launches
+    hash_launches = check_hash_counts("guided_step", step.eager + step.captures)
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TRAIN_STEPS)]
     ms = sum(step_ms) / TRAIN_STEPS
     check(fwd == FWD_PER_STEP * TRAIN_STEPS,
@@ -1968,6 +2113,7 @@ def run_guided_training(ds, params, model, device, g, ip_table, lpips_path):
           f"sds_grad_norm {m0['sds_grad_norm']:.6g}, loss {m0['loss']:.6g}; launches {launched0}")
     return {
         "ms_per_step": ms, "step_ms": step_ms, "launches_fwd": fwd, "launches_bwd": bwd,
+        "hash_launches": hash_launches,
         "losses": rows, "peak_memory_gib": peak_gib, "profile": prof,
         "aten_ops_per_step": n_ops, "host_syncs_per_step": n_syncs,
         "cpu_transfers_per_step": cpu_moves, "synced_step_spans_ms": span,
@@ -3115,6 +3261,7 @@ def run_dreamer(params, model, device):
     torch.cuda.reset_peak_memory_stats()
     bc.launches = 0
     bc.bwd_launches = 0
+    zero_hash_counts()
     step_ms, metrics, host, prof = [], [], None, None
     with timed("dreamer: 6 steps"):
         for it in range(DREAMER_STEPS):
@@ -3162,6 +3309,7 @@ def run_dreamer(params, model, device):
             alive_counts.append(int(dstate.alive.sum()))
         torch.cuda.synchronize()
     fwd, bwd = bc.launches, bc.bwd_launches
+    hash_launches = check_hash_counts("dreamer_step", loss_step.eager + loss_step.captures)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check((fwd, bwd) == (DREAMER_FWD_PER_STEP * DREAMER_STEPS,
                          DREAMER_BWD_PER_STEP * DREAMER_STEPS),
@@ -3275,7 +3423,8 @@ def run_dreamer(params, model, device):
     del g, dp, opt, loss_step, maintain
     torch.cuda.empty_cache()
     return {"ms_per_step": ms, "step_ms": step_ms, "launches_fwd": fwd, "launches_bwd": bwd,
-            "alive": alive_counts, "capacity": cap, "threshold": threshold,
+            "hash_launches": hash_launches, "alive": alive_counts, "capacity": cap,
+            "threshold": threshold,
             "densify_eligible": eligible, "losses": metrics, "peak_memory_gib": peak_gib,
             "profile": prof, "aten_ops": n_ops, "host_syncs": n_syncs,
             "main_path": main_path, "vs_plain": vs_plain,
@@ -3736,6 +3885,8 @@ def main():
         comp_bwd = [check_composite_bwd_kernel(1024, 7, seed=2),
                     check_composite_bwd_kernel(1024, 3, seed=3),
                     check_composite_bwd_kernel(256, 7, seed=4)]
+        hash_kernel = {"cell": check_hash_encode_kernel(),
+                       "corner": check_hash_encode_kernel("corner", HASH_POINTS[:1])}
 
     t0 = time.perf_counter()
     with timed("scene"):
@@ -3885,15 +4036,48 @@ def main():
            for label, v in tl["views"].items()},
         **{k: comp_tiles[k] for k in tiles_keys[1:]},
     }
+    hk = hash_kernel["cell"][HASH_POINTS[0]]
+    hash_keys = ("max_abs_err", "grad_max_abs_err", "device_ms", "bwd_device_ms", "bound_ms",
+                 "bwd_bound_ms", "ms", "plain_ms", "plain_bwd_ms")
+    hashk = {
+        "name": "hash_encode",
+        "route": "cuda",
+        "source": "soar_tpu_torch/csrc/hash_encode.cu",
+        "replaces": "soar_tpu/field/hashgrid.py:107",
+        "launches": tr["hash_launches"]["fwd"],
+        "launches_bwd": tr["hash_launches"]["bwd"],
+        "launches_turntable": sl["hash_launches"],
+        "launches_train": tr["hash_launches"],
+        "launches_guided_train": guided["hash_launches"],
+        "launches_dreamer": dreamer["hash_launches"],
+        "main_path_launches": {path: {"fwd": f, "bwd": b}
+                               for path, (f, b) in HASH_PER_CALL.items()},
+        "max_abs_err": max(r["max_abs_err"] for recs in hash_kernel.values()
+                           for r in recs.values()),
+        "grad_max_abs_err": max(r["grad_max_abs_err"] for recs in hash_kernel.values()
+                                for r in recs.values()),
+        "ms": hk["ms"],
+        "plain_ms": hk["plain_ms"],
+        "bound_ms": hk["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "device_ms": hk["device_ms"],
+        "bwd_device_ms": hk["bwd_device_ms"],
+        "bwd_bound_ms": hk["bwd_bound_ms"],
+        "N": HASH_POINTS[0],
+        f"N{HASH_POINTS[1]}": {k: hash_kernel["cell"][HASH_POINTS[1]][k] for k in hash_keys},
+        "corner": {k: hash_kernel["corner"][HASH_POINTS[0]][k] for k in hash_keys},
+    }
     # The same numbers under shorter names.
-    for entry in (fwd, bwd, tiles):
+    for entry in (fwd, bwd, tiles, hashk):
         entry.update(max_err=entry["max_abs_err"], kernel_ms=entry["ms"])
     WALL_S["total after imports"] = time.perf_counter() - T_START
     print("[time] wall s per phase: " + ", ".join(f"{k} {v:.2f}" for k, v in WALL_S.items()))
     new_s = sum(v for k, v in WALL_S.items() if k.startswith("parallel"))
     print(f"[time] the [parallel] phase: {new_s:.2f} s")
     report = {"card": info, "ptxas": ptxas, "kernels": comp, "kernels_bwd": comp_bwd,
-              "kernels_tiles": comp_tiles, "slice": sl, "tile_lists": tl, "oracle_probe": probe,
+              "kernels_tiles": comp_tiles, "hash_encode": hash_kernel, "slice": sl,
+              "tile_lists": tl, "oracle_probe": probe,
               "export_full": export_full, "training": tr, "image_prompt": image_prompt,
               "guided_training": guided, "cli": cli, "real_capture": real,
               "yaml_config": yaml_cfg, "reference_import": ref_import, "dreamer": dreamer,
@@ -3903,7 +4087,7 @@ def main():
         json.dump(report, f, indent=1)
 
     print(info["nvidia_smi"])
-    print(json.dumps({"kernels": [fwd, bwd, tiles]}))
+    print(json.dumps({"kernels": [fwd, bwd, tiles, hashk]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}))
 

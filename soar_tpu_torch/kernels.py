@@ -47,6 +47,12 @@ SOURCES = {
         # t_min, stream
         [_P] * 14 + [ctypes.POINTER(ctypes.c_int64)] + [_I] * 6 + [_F, _F, _F, _P],
     ),
+    "hash_encode": (
+        "csrc/hash_encode.cu",
+        # table, pos, res, out, grad_out, grad_table, N, L, log2T, corner,
+        # dtype, stream
+        [_P] * 6 + [_I] * 5 + [_P],
+    ),
 }
 
 NVCC_FLAGS = [

@@ -491,3 +491,35 @@ def test_a_traced_view_runs_eagerly_with_its_spans(fresh_policy):
     assert not ctr.get("host_syncs")
     for g in got:
         assert all(_same(g[k], want[k]) for k in want)
+
+
+def _hash_counts():
+    """The hash kernel's forward and backward launches and the plain calls."""
+    e = hashgrid.hash_encode
+    return e.kernel, e.kernel_bwd, e.eager
+
+
+@pytest.mark.cuda
+def test_a_views_field_query_launches_the_hash_kernel_at_eager_and_capture_calls(fresh_policy):
+    """The view's two hash encodes (the shared features and the quats') run
+    the kernel's forward, never the plain version; a replay adds no count,
+    since the counters move where Python runs, and makes no host sync."""
+    _cuda()
+    params, model, cam, size = _scene("cuda", size=128, subdiv=3)
+    bg = torch.ones(3, device="cuda")
+    ovs = [_turn(i) for i in range(4)]
+    deltas = []
+    with torch.no_grad():
+        for i in range(4):
+            before = _hash_counts()
+            mode = torch.cuda.get_sync_debug_mode()
+            if i == 3:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                render_view(params, model, cam, size, bg, 0, SETTINGS["turntable"],
+                            smpl_override=ovs[i])
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+            deltas.append(tuple(a - b for a, b in zip(_hash_counts(), before)))
+    assert deltas == [(2, 0, 0), (2, 0, 0), (0, 0, 0), (0, 0, 0)]

@@ -28,7 +28,8 @@ They hold the stage-0 step replayed from CUDA graphs
 (``soar_tpu_torch.render.graphs``) against the eager path over steps 497
 to 500 and the wrap back to step 1: one capture, every metric equal to the
 bit, the gradients within the benchmark's program limits, 13 forward and 8
-backward composite launches a step, and no host sync in a replayed step.
+backward composite launches a step, no host sync in a replayed step, and
+the field's hash encodes on the hash kernel at the eager and capture calls.
 """
 
 import os
@@ -378,3 +379,36 @@ def test_a_replayed_stage0_step_makes_no_host_sync():
         torch.cuda.set_sync_debug_mode(mode)
     assert _kinds(s.step) == (1, 1, 2)
     assert metrics["loss"].is_cuda and "loss_sds" not in metrics
+
+
+@pytest.mark.cuda
+def test_stage0_steps_encode_the_field_with_the_hash_kernel():
+    """The step's field query runs both hash encodes on the kernel at the
+    eager and the capture call, and the backward of the one the loss reads
+    (the shared features'; the quats' head is not rendered) gives the
+    table's gradient; a replay adds no count and makes no host sync."""
+    _cuda()
+    from soar_tpu_torch.field import hashgrid
+
+    def _hash_counts():
+        e = hashgrid.hash_encode
+        return e.kernel, e.kernel_bwd, e.eager
+
+    s = _card_step()
+    deltas = []
+    for i in range(4):
+        before = _hash_counts()
+        mode = torch.cuda.get_sync_debug_mode()
+        if i == 3:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            s.run()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        deltas.append(tuple(a - b for a, b in zip(_hash_counts(), before)))
+    assert deltas == [(2, 1, 0), (2, 1, 0), (0, 0, 0), (0, 0, 0)]
+    assert _kinds(s.step) == (1, 1, 2)
+    grad = s.state.params.field.encoding.grad
+    assert grad is not None and float(grad.abs().max()) > 0
+    assert torch.equal(grad, grad.to(torch.bfloat16).to(torch.float32))

@@ -5,6 +5,7 @@ into the nested numpy dicts ``soar_tpu_torch.io.from_jax`` takes."""
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -96,6 +97,68 @@ def assert_close_share(got, want, atol, max_share, msg=""):
     bad = np.abs(got - want) > atol
     share = bad.mean() if bad.size else 0.0
     assert share <= max_share, f"{msg}: {share:.4%} of elements beyond {atol}"
+
+
+# soar_tpu's hash encodings recorded on the CPU, so that the port's CUDA
+# kernel can be held against them on a card where JAX is not installed.
+# ``python tests/test_torch_port_field.py`` writes the file, and
+# test_torch_port_field.py checks it against soar_tpu.
+HASH_JAX_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                             "hash_encode_jax.npz")
+HASH_JAX_CASES = [(mode, dtype) for mode in ("cell", "corner")
+                  for dtype in ("bfloat16", "float32")]
+
+
+def hash_jax_case(mode, dtype):
+    """Grid keywords, table [L, T, W], positions [1001, 3] and cotangent
+    [1001, 2 L] (numpy) of a recorded case.  The positions hold 0, 1,
+    points on a face and points from outside the box, which
+    ``normalize_positions`` sets to 0.  float32: 2^8 rows a level, which
+    the points crowd, so entries of the table's gradient sum many
+    cotangents.  bfloat16: 2^16 rows a level, and only 48 uniform points
+    have a cotangent, so no entry sums more than two: soar_tpu's bf16
+    scatter, which adds one cotangent at a time in bf16, and a float32 sum
+    rounded once then agree to the bit."""
+    if dtype == "float32":
+        grid = dict(num_levels=4, min_res=16, max_res=512, log2_hashmap_size=8)
+    else:
+        grid = dict(num_levels=4, min_res=64, max_res=512, log2_hashmap_size=16)
+    grid.update(mode=mode, dtype=dtype)
+    rng = np.random.RandomState(31)
+    pos = rng.uniform(0, 1, (1001, 3)).astype(np.float32)
+    pos[0], pos[1], pos[2, 0], pos[3, 1] = 0.0, 1.0, 1.0, 0.0
+    outside = rng.uniform(-0.3, 1.3, (8, 3)).astype(np.float32)
+    pos[4:12] = outside * np.all((outside > 0) & (outside < 1), axis=1, keepdims=True)
+    L = grid["num_levels"]
+    width = 2 * (8 if mode == "cell" else 1)
+    table = rng.uniform(-1, 1, (L, 1 << grid["log2_hashmap_size"], width)).astype(np.float32)
+    cot = rng.standard_normal((1001, 2 * L)).astype(np.float32)
+    if dtype == "bfloat16":
+        cot[:12] = 0.0
+        cot[60:] = 0.0
+    return grid, table, pos, cot
+
+
+def assert_table_grad_close(got, idx, val, absval, dtype, msg=""):
+    """A table's gradient ``got`` (any shape) against a reference given at
+    its flat entries ``idx`` (every entry a cotangent reaches): the value
+    ``val`` and ``absval``, the sum of the entry's |cotangent * weight|.
+    Every other entry is 0; at ``idx`` the two agree to float32 round-off of
+    the sum (2^-18 of ``absval``) and, in bf16, one bf16 ulp of the larger
+    (where sums taken in another order straddle a rounding boundary)."""
+    got = n(got).reshape(-1)
+    rest = np.ones(got.shape, bool)
+    rest[idx] = False
+    assert not np.any(got[rest]), f"{msg}: {int(np.count_nonzero(got[rest]))} entries off idx"
+    g = got[idx]
+    allowed = 2.0**-18 * absval
+    if dtype == "bfloat16":
+        big = np.maximum(np.abs(g), np.abs(val))
+        allowed = allowed + np.where(big > 0, np.ldexp(1.0, np.frexp(big)[1] - 8), 0.0)
+    excess = np.abs(g - val) - allowed
+    assert np.all(excess <= 0), (
+        f"{msg}: {int(np.sum(excess > 0))} entries beyond the tolerance, worst "
+        f"|got - want| {float(np.abs(g - val).max()):.3g}")
 
 
 def make_scene(NT=6, K=24, tile=16, C=7, seed=0, saturate=False):
