@@ -87,13 +87,15 @@ def _posed(params, model, fp, settings, attrs):
     points = params.xyz
     rot = S.get_rotation(params)
 
-    live_A = smplx_forward(model.body, fp).A[0]
-    pt_mats = point_skinning_mats(model.skin, live_A)
+    with spans.span("soar.pose.lbs"):
+        live_A = smplx_forward(model.body, fp).A[0]
 
     if attrs is None:
         attrs = query_attributes(params, model)
 
-    posed = apply_point_mats(pt_mats, points)
+    with spans.span("soar.pose.skin"):
+        pt_mats = point_skinning_mats(model.skin, live_A)
+        posed = apply_point_mats(pt_mats, points)
     if settings.offset:
         posed = posed + attrs["offsets"]
 

@@ -23,14 +23,16 @@ counts as ``host_syncs``.
 
 The spans, outermost first: ``soar.step`` (a training step), ``soar.draws``
 (its random draws), ``soar.batch`` (its GT batch), ``soar.render`` (a
-view), ``soar.pose`` (LBS and the surfel frames), ``soar.field`` (the
-attribute field's query), ``soar.raster.preprocess`` / ``.sort`` /
-``.gather`` (the rasterizer's front end), ``soar.composite`` (one composite
-call), ``soar.losses``, ``soar.lpips``, ``soar.guidance``,
-``soar.backward`` and ``soar.optim``; beside the steps, ``soar.densify``
-(a GaussianDreamer ``maintain`` that changes the surfels, re-skinning
-included).  The counters: ``host_syncs``, ``raster.keys`` (the keys a sort
-sorts), ``raster.keys_in_tiles`` (those that land in a tile),
+view), ``soar.pose`` (LBS and the surfel frames; inside it ``soar.pose.lbs``,
+the body model's forward, and ``soar.pose.skin``, the surfels' skinning
+blend), ``soar.field`` (the attribute field's query),
+``soar.raster.preprocess`` / ``.sort`` / ``.gather`` (the rasterizer's
+front end), ``soar.composite`` (one composite call), ``soar.losses``,
+``soar.lpips``, ``soar.guidance``, ``soar.backward`` and ``soar.optim``;
+beside the steps, ``soar.densify`` (a GaussianDreamer ``maintain`` that
+changes the surfels, re-skinning included).  The counters: ``host_syncs``,
+``raster.keys`` (the keys a sort sorts), ``raster.keys_in_tiles`` (those
+that land in a tile),
 ``raster.dropped`` and ``raster.capped`` (the overflow canaries), and
 ``densify.cloned``, ``densify.split``, ``densify.pruned`` (the slots a
 densify filled by clone and by split, the surfels a prune took away) and

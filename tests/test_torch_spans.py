@@ -205,7 +205,8 @@ def test_guided_step_emits_its_spans_and_keeps_every_bit(tmp_path):
     calls = Counter(e.name for e in _span_events(prof))
     assert dict(calls) == {
         "soar.step": 1, "soar.draws": 1, "soar.batch": 1, "soar.field": 1, "soar.render": 6,
-        "soar.pose": 6, "soar.raster.preprocess": 6, "soar.raster.sort": 6,
+        "soar.pose": 6, "soar.pose.lbs": 6, "soar.pose.skin": 6, "soar.raster.preprocess": 6,
+        "soar.raster.sort": 6,
         "soar.raster.gather": 6, "soar.composite": 13, "soar.losses": 1, "soar.lpips": 2,
         "soar.guidance": 1, "soar.backward": 1, "soar.optim": 1}
     # A sort's keys; those in tiles and the canaries, as the step reports them.
@@ -239,8 +240,9 @@ def test_view_is_a_unit_with_its_spans():
             counts = spans.counters()
     evs = _span_events(prof)
     assert Counter(e.name for e in evs) == {
-        "soar.render": 1, "soar.pose": 1, "soar.field": 1, "soar.raster.preprocess": 1,
-        "soar.raster.sort": 1, "soar.raster.gather": 1, "soar.composite": 2}
+        "soar.render": 1, "soar.pose": 1, "soar.pose.lbs": 1, "soar.pose.skin": 1,
+        "soar.field": 1, "soar.raster.preprocess": 1, "soar.raster.sort": 1,
+        "soar.raster.gather": 1, "soar.composite": 2}
     unit = next(e for e in evs if e.name == "soar.render").kwinputs["unit"]
     assert unit == "view 0" and all(e.kwinputs["unit"] == unit for e in evs)
     assert set(counts) == {"raster.keys", "raster.keys_in_tiles", "raster.dropped",
