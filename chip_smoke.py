@@ -22,11 +22,18 @@
    the plain version, the table's gradient within one bf16 ulp, the kernel
    alone forward and backward (``device_ms``, ``bwd_device_ms``) against
    its byte bound (the distinct rows the points touch), the wrapper call
-   and the plain version.  In the turntable (4), the training runs (8, 10)
-   and the dreamer (14) the hash kernel's counters are set to 0 just
-   before the counted run and held to its exact launches at each eager or
-   capture call (``HASH_PER_CALL``; a replay adds none), and no plain
-   call.
+   and the plain version.  The surfel preprocess (``csrc/preprocess.cu``,
+   ``[preprocess kernel]`` lines) at the cells' 125,664, 167,014 and
+   251,328 surfels, and with the dreamer's volume Gaussians (its
+   ``RasterConfig``, flags 0) at 251,328: valid and radius equal to the
+   plain version's, the float fields within PREP_FWD_TOL, the gradients
+   within PREP_GRAD_TOL of autograd's, the kernel alone forward and
+   backward against its byte bound (the pair within PREP_PAIR_MS at
+   125,664), the wrapper's forward and backward and the plain version's.  In the turntable (4), the
+   training runs (8, 10) and the dreamer (14) the hash and preprocess
+   kernels' counters are set to 0 just before the counted run and held to
+   their exact launches at each eager or capture call (``HASH_PER_CALL``,
+   ``PREP_PER_CALL``; a replay adds none), and no plain call.
 4. Drives the port's turntable (``soar_tpu_torch.cli.render_rot.
    run_turntable``) at full width — the 125,664-surfel procedural scene,
    16-level 2^18 hash field, 512x512 renders — with every launch counter
@@ -528,14 +535,41 @@ HASH_PER_CALL = {"view": (2, 0), "train_step": (2, 1), "guided_step": (2, 1),
                  "dreamer_step": (8, 0)}
 
 
-def zero_hash_counts():
+# The preprocess kernel's launches (forward, backward) at each eager or
+# capture call of a main path: one forward a render (``_view_passes``), with
+# its backward in a training step.  A view renders once; a warm or guided
+# step renders its 4 gen views, the GT pass and the normal pass
+# (``train/trainer.py`` ``front``); the dreamer's loss step its 4 views
+# (``train/systems.py``).
+PREP_PER_CALL = {"view": (1, 0), "train_step": (6, 6), "guided_step": (6, 6),
+                 "dreamer_step": (4, 4)}
+
+
+def zero_kernel_counts():
+    """The hash encode's and the preprocess's launch counters to 0."""
     from soar_tpu_torch.field.hashgrid import hash_encode
+    from soar_tpu_torch.render.preprocess import preprocess
 
     hash_encode.kernel = hash_encode.kernel_bwd = hash_encode.eager = 0
+    preprocess.kernel = preprocess.kernel_bwd = preprocess.eager = 0
+
+
+def check_preprocess_counts(path, calls):
+    """The preprocess kernel's launches since :func:`zero_kernel_counts` on
+    a main path of which ``calls`` eager or capture calls ran:
+    PREP_PER_CALL[path] each, and no plain call."""
+    from soar_tpu_torch.render.preprocess import preprocess
+
+    fwd, bwd = PREP_PER_CALL[path]
+    got = (preprocess.kernel, preprocess.kernel_bwd, preprocess.eager)
+    check(calls > 0 and got == (fwd * calls, bwd * calls, 0),
+          f"{path}: preprocess kernel launches (forward, backward, plain) {got} in {calls} "
+          f"eager or capture calls, want ({fwd}, {bwd}, 0) a call")
+    return {"fwd": got[0], "bwd": got[1], "calls": calls}
 
 
 def check_hash_counts(path, calls):
-    """The hash kernel's launches since :func:`zero_hash_counts` on a main
+    """The hash kernel's launches since :func:`zero_kernel_counts` on a main
     path of which ``calls`` eager or capture calls ran: HASH_PER_CALL[path]
     each, and no plain call."""
     from soar_tpu_torch.field.hashgrid import hash_encode
@@ -606,6 +640,124 @@ def check_hash_encode_kernel(mode="cell", points=HASH_POINTS):
         check(beyond == 0, f"hash_encode {mode} N={n}: {beyond} gradient entries beyond one "
               "bf16 ulp")
         del got, want, leaf, ref, gdiff, ulp, res, grad_table
+    return out
+
+
+# The preprocess kernel at the cells' surfel counts: the turntable's and the
+# training cells' 125,664, the novel pose's 167,014, the dreamer's 251,328
+# static slots.
+PREP_POINTS = (125_664, 167_014, 251_328)
+# Bytes a surfel: the forward reads the mean, quaternion and scales (40) and
+# writes xy, depth, conic, radius, normal, view_dot, jinv and valid (85); the
+# backward reads the 40 and the six outputs' cotangents (80) and writes the
+# three gradients (40).
+PREP_FWD_BYTES, PREP_BWD_BYTES = 40 + 85, 40 + 80 + 40
+PREP_FWD_TOL = 1e-6    # relative to each field's largest magnitude (bit-equal on an H100)
+PREP_GRAD_TOL = 2e-5   # relative L2 of each input's gradient against autograd's
+PREP_PAIR_MS = 0.15    # the kernel pair's ceiling at 125,664 surfels
+
+
+def preprocess_scene(n, seed, flat=True):
+    """``n`` surfels over a body-sized box (unit quaternions, flat scales
+    around a centimetre, as ``_posed`` builds them; with ``flat`` False, the
+    dreamer's volume Gaussians, the third scale as large) and a GT-like
+    camera at 512x512 (off-centre principal point) that frames most of
+    them."""
+    from soar_tpu_torch.core.camera import camera_from_c2w, look_at_c2w
+    from soar_tpu_torch.render.types import GaussianInputs
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    box = torch.tensor([0.8, 1.8, 0.6], device="cuda")
+    means = (torch.rand((n, 3), generator=gen, device="cuda") - 0.5) * box
+    quats = torch.randn((n, 4), generator=gen, device="cuda")
+    quats = quats / quats.norm(dim=-1, keepdim=True)
+    s = torch.exp(-4.6 + 0.6 * torch.randn((n, 1), generator=gen, device="cuda"))
+    g = GaussianInputs(means3d=means, quats=quats,
+                       scales=torch.cat([s, s, torch.zeros_like(s) if flat else s], -1),
+                       opacities=torch.rand((n,), generator=gen, device="cuda"),
+                       colors=torch.rand((n, 3), generator=gen, device="cuda"))
+    c2w = look_at_c2w(torch.tensor([0.3, 0.2, 2.6], device="cuda"),
+                      torch.zeros(3, device="cuda"), torch.tensor([0.0, 1.0, 0.0], device="cuda"))
+    cam = camera_from_c2w(c2w, 0.52, 0.52, prcppoint=torch.tensor([0.512, 0.487],
+                                                                  device="cuda"))
+    return g, cam, (512, 512)
+
+
+def check_preprocess_kernel(points=PREP_POINTS):
+    """csrc/preprocess.cu against preprocess_plain at the cells' surfel
+    counts, with the SOAR cells' surfels (``RasterConfig()``) at each and the
+    dreamer's volume Gaussians (``DreamerConfig().raster``) at its 251,328:
+    valid and radius equal, the float fields within PREP_FWD_TOL, the means',
+    quaternions' and scales' gradients within PREP_GRAD_TOL of autograd's for
+    cotangents on the kept surfels; the kernel alone (forward, backward)
+    against its byte bound, the wrapper's forward and backward, and the
+    plain version's forward and forward-and-backward.  Keyed by N, and the
+    dreamer's by "dreamer"."""
+    from soar_tpu_torch.render import preprocess as pp
+    from soar_tpu_torch.render.types import GaussianInputs, RasterConfig
+    from soar_tpu_torch.train.systems import DreamerConfig
+
+    fields = ("xy", "depth", "conic", "normal_view", "view_dot", "jinv")
+    out = {}
+    runs = [(n, n, RasterConfig()) for n in points] + [("dreamer", points[-1],
+                                                         DreamerConfig().raster)]
+    for key, n, cfg in runs:
+        g, cam, size = preprocess_scene(n, seed=n, flat=cfg.surface)
+        camt = (cam.fovx, cam.fovy, cam.w2c, cam.full_proj, cam.prcppoint)
+        got = pp.preprocess(g, cam, size, cfg)
+        want = pp.preprocess_plain(g, cam, size, cfg)
+        off = int(((got.valid != want.valid) | (got.radius != want.radius)).sum())
+        keep = want.valid & got.valid
+        err, abs_err, unequal = {}, {}, 0
+        for k in fields:
+            a, b = getattr(got, k)[keep], getattr(want, k)[keep]
+            unequal += int((a != b).sum())
+            err[k] = float(((a - b).abs() / b.abs().amax(0).clamp_min(1e-30)).max())
+            abs_err[k] = float((a - b).abs().max())
+        gen = torch.Generator(device="cuda").manual_seed(n + 1)
+        cots = [torch.randn(getattr(want, k).shape, generator=gen, device="cuda")
+                * want.valid.reshape(-1, *([1] * (getattr(want, k).dim() - 1))) for k in fields]
+
+        def vjp(fn):
+            leaves = [x.detach().clone().requires_grad_() for x in g[:3]]
+            pre = fn(GaussianInputs(*leaves, *g[3:]), cam, size, cfg)
+            loss = sum((getattr(pre, k) * c).sum() for k, c in zip(fields, cots))
+            return torch.autograd.grad(loss, leaves)
+
+        grad_err = {name: float((a - b).norm() / b.norm())
+                    for name, a, b in zip(("means3d", "quats", "scales"),
+                                          vjp(pp.preprocess), vjp(pp.preprocess_plain))}
+        fargs, _ = pp.forward_args(*g[:3], camt, size, cfg)
+        bargs, _ = pp.backward_args(*g[:3], camt, size, cfg, cots, (True, True, True))
+        flags = pp.launch_flags(cfg)
+        device_ms = kernel_ms(lambda: pp._launch(fargs, flags, False, "cuda"), 50)
+        bwd_ms = kernel_ms(lambda: pp._launch(bargs, flags, True, "cuda"), 50)
+        ms = cuda_ms(lambda: vjp(pp.preprocess), 20)
+        with torch.no_grad():
+            plain_ms = cuda_ms(lambda: pp.preprocess_plain(g, cam, size, cfg), 10)
+        plain_bwd_ms = cuda_ms(lambda: vjp(pp.preprocess_plain), 5)
+        rec = {"N": n, "flags": flags, "valid_or_radius_off": off,
+               "float_entries_unequal": unequal, "max_rel_err": err, "max_abs_err": abs_err,
+               "grad_rel_l2": grad_err, "device_ms": device_ms,
+               "bwd_device_ms": bwd_ms, "pair_device_ms": device_ms + bwd_ms,
+               "bound_ms": 1e3 * n * PREP_FWD_BYTES / H100_BYTES_PER_S,
+               "bwd_bound_ms": 1e3 * n * PREP_BWD_BYTES / H100_BYTES_PER_S,
+               "ms": ms, "plain_ms": plain_ms, "plain_bwd_ms": plain_bwd_ms}
+        out[key] = rec
+        print(f"[preprocess kernel N={n} flags={flags}] valid or radius off {off}, float "
+              f"entries unequal {unequal}, max rel err {max(err.values()):.3g}, gradients' rel L2 "
+              + ", ".join(f"{k} {v:.3g}" for k, v in grad_err.items())
+              + f"; kernel alone forward {device_ms:.4f} ms (bound {rec['bound_ms']:.4f}, "
+              f"bytes), backward {bwd_ms:.4f} ms (bound {rec['bwd_bound_ms']:.4f}); wrapper "
+              f"forward and backward {ms:.4f} ms; plain forward {plain_ms:.4f} ms, forward and "
+              f"backward {plain_bwd_ms:.4f} ms")
+        check(off <= max(2, 1e-5 * n), f"preprocess {key}: {off} surfels' valid or radius off")
+        check(max(err.values()) <= PREP_FWD_TOL, f"preprocess {key}: forward error {err}")
+        check(max(grad_err.values()) <= PREP_GRAD_TOL, f"preprocess {key}: gradients {grad_err}")
+        if key == points[0]:
+            check(rec["pair_device_ms"] <= PREP_PAIR_MS,
+                  f"preprocess N={n}: kernel pair {rec['pair_device_ms']:.4f} ms")
+        del got, want, cots, fargs, bargs
     return out
 
 
@@ -1044,15 +1196,16 @@ def run_slice(ds, params, model, views, ov, device):
     # ---- the main path, counted: launch counters 0 just before, read after
     with tempfile.TemporaryDirectory() as out_dir:
         block_composite.composite_block.launches = 0
-        zero_hash_counts()
+        zero_kernel_counts()
         python_views = render_view.eager + render_view.captures
         t0 = time.perf_counter()
         outs = run_turntable(out_dir, ds, params, model, False, NUM_VIEWS, device=device)
         torch.cuda.synchronize()
         turntable_s = time.perf_counter() - t0
         launches = block_composite.composite_block.launches
-        hash_launches = check_hash_counts(
-            "view", render_view.eager + render_view.captures - python_views)
+        calls = render_view.eager + render_view.captures - python_views
+        hash_launches = check_hash_counts("view", calls)
+        prep_launches = check_preprocess_counts("view", calls)
         pngs = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
     check(launches == 2 * NUM_VIEWS,
           f"composite kernel launched {launches} times, want {2 * NUM_VIEWS}")
@@ -1075,7 +1228,8 @@ def run_slice(ds, params, model, views, ov, device):
         overflow.append([int(x) for x in out["overflow"].cpu()])
     print(f"[slice] run_turntable {NUM_VIEWS} views: {turntable_s:.3f} s incl. png "
           f"writes; composite launches {launches}; hash kernel launches "
-          f"{hash_launches}; overflow [dropped, capped] per "
+          f"{hash_launches}; preprocess kernel launches {prep_launches}; overflow [dropped, "
+          f"capped] per "
           f"view {overflow}; mask>0.5 pixels per view {coverage}")
 
     # ---- per-view time and kernel vs plain, at bench.py's camera and at
@@ -1084,7 +1238,7 @@ def run_slice(ds, params, model, views, ov, device):
                for label, cam in views.items()}
     return {
         "surfels": N, "turntable_s": turntable_s, "launches": launches,
-        "hash_launches": hash_launches,
+        "hash_launches": hash_launches, "preprocess_launches": prep_launches,
         "overflow": overflow, "mask_pixels": coverage, "views": reports,
     }
 
@@ -1408,7 +1562,7 @@ def run_training(ds, params, model, device, lpips_path):
         ts.cfg, ts.stage, ts.raster, ts.sizes, ts.state, ts.opt, ts.step)
     batches, gen, frames, one_step = ts.batches, ts.gen, ts.frames, ts.one_step
 
-    zero_hash_counts()
+    zero_kernel_counts()
     with timed("train: 2 warm-up steps"):
         for _ in range(WARMUP_STEPS - 1):
             one_step()
@@ -1436,6 +1590,7 @@ def run_training(ds, params, model, device, lpips_path):
     fwd = block_composite.composite_block.launches
     bwd = block_composite.composite_block.bwd_launches
     hash_launches = check_hash_counts("train_step", step.eager + step.captures)
+    prep_launches = check_preprocess_counts("train_step", step.eager + step.captures)
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TRAIN_STEPS)]
     ms = sum(step_ms) / TRAIN_STEPS
     check(fwd == FWD_PER_STEP * TRAIN_STEPS,
@@ -1608,7 +1763,8 @@ def run_training(ds, params, model, device, lpips_path):
     return {
         "main_path": main_path,
         "ms_per_step": ms, "step_ms": step_ms, "launches_fwd": fwd, "launches_bwd": bwd,
-        "hash_launches": hash_launches, "losses": rows, "groups_changed": sorted(changed),
+        "hash_launches": hash_launches, "preprocess_launches": prep_launches,
+        "losses": rows, "groups_changed": sorted(changed),
         "peak_memory_gib": peak_gib,
         "profile": prof, "phase_ms": phase_ms, "aten_ops_per_step": n_ops,
         "host_syncs_per_step": n_syncs,
@@ -1855,7 +2011,7 @@ def run_guided_training(ds, params, model, device, g, ip_table, lpips_path):
         draws = sample_step_draws(draw_gen, cfg, latent_size=g.latent_size)
         return fn(state, batches[frames.randint(len(batches))], draws)
 
-    zero_hash_counts()
+    zero_kernel_counts()
     with timed("guided: 2 warm-up steps"):
         for _ in range(WARMUP_STEPS):
             one_step()
@@ -1874,6 +2030,7 @@ def run_guided_training(ds, params, model, device, g, ip_table, lpips_path):
         torch.cuda.synchronize()
     fwd, bwd = bc.launches, bc.bwd_launches
     hash_launches = check_hash_counts("guided_step", step.eager + step.captures)
+    prep_launches = check_preprocess_counts("guided_step", step.eager + step.captures)
     step_ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(TRAIN_STEPS)]
     ms = sum(step_ms) / TRAIN_STEPS
     check(fwd == FWD_PER_STEP * TRAIN_STEPS,
@@ -2113,7 +2270,7 @@ def run_guided_training(ds, params, model, device, g, ip_table, lpips_path):
           f"sds_grad_norm {m0['sds_grad_norm']:.6g}, loss {m0['loss']:.6g}; launches {launched0}")
     return {
         "ms_per_step": ms, "step_ms": step_ms, "launches_fwd": fwd, "launches_bwd": bwd,
-        "hash_launches": hash_launches,
+        "hash_launches": hash_launches, "preprocess_launches": prep_launches,
         "losses": rows, "peak_memory_gib": peak_gib, "profile": prof,
         "aten_ops_per_step": n_ops, "host_syncs_per_step": n_syncs,
         "cpu_transfers_per_step": cpu_moves, "synced_step_spans_ms": span,
@@ -3261,7 +3418,7 @@ def run_dreamer(params, model, device):
     torch.cuda.reset_peak_memory_stats()
     bc.launches = 0
     bc.bwd_launches = 0
-    zero_hash_counts()
+    zero_kernel_counts()
     step_ms, metrics, host, prof = [], [], None, None
     with timed("dreamer: 6 steps"):
         for it in range(DREAMER_STEPS):
@@ -3310,6 +3467,8 @@ def run_dreamer(params, model, device):
         torch.cuda.synchronize()
     fwd, bwd = bc.launches, bc.bwd_launches
     hash_launches = check_hash_counts("dreamer_step", loss_step.eager + loss_step.captures)
+    prep_launches = check_preprocess_counts("dreamer_step",
+                                            loss_step.eager + loss_step.captures)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     check((fwd, bwd) == (DREAMER_FWD_PER_STEP * DREAMER_STEPS,
                          DREAMER_BWD_PER_STEP * DREAMER_STEPS),
@@ -3423,7 +3582,8 @@ def run_dreamer(params, model, device):
     del g, dp, opt, loss_step, maintain
     torch.cuda.empty_cache()
     return {"ms_per_step": ms, "step_ms": step_ms, "launches_fwd": fwd, "launches_bwd": bwd,
-            "hash_launches": hash_launches, "alive": alive_counts, "capacity": cap,
+            "hash_launches": hash_launches, "preprocess_launches": prep_launches,
+            "alive": alive_counts, "capacity": cap,
             "threshold": threshold,
             "densify_eligible": eligible, "losses": metrics, "peak_memory_gib": peak_gib,
             "profile": prof, "aten_ops": n_ops, "host_syncs": n_syncs,
@@ -3887,6 +4047,7 @@ def main():
                     check_composite_bwd_kernel(256, 7, seed=4)]
         hash_kernel = {"cell": check_hash_encode_kernel(),
                        "corner": check_hash_encode_kernel("corner", HASH_POINTS[:1])}
+        prep_kernel = check_preprocess_kernel()
 
     t0 = time.perf_counter()
     with timed("scene"):
@@ -4068,15 +4229,49 @@ def main():
         f"N{HASH_POINTS[1]}": {k: hash_kernel["cell"][HASH_POINTS[1]][k] for k in hash_keys},
         "corner": {k: hash_kernel["corner"][HASH_POINTS[0]][k] for k in hash_keys},
     }
+    pk = prep_kernel[PREP_POINTS[0]]
+    prep_keys = ("flags", "valid_or_radius_off", "float_entries_unequal", "max_rel_err",
+                 "max_abs_err", "grad_rel_l2",
+                 "device_ms", "bwd_device_ms", "bound_ms", "bwd_bound_ms", "ms", "plain_ms",
+                 "plain_bwd_ms")
+    prepk = {
+        "name": "preprocess",
+        "route": "cuda",
+        "source": "soar_tpu_torch/csrc/preprocess.cu",
+        "replaces": "none: soar_tpu/render/preprocess.py is plain jnp",
+        "launches": tr["preprocess_launches"]["fwd"],
+        "launches_bwd": tr["preprocess_launches"]["bwd"],
+        "launches_turntable": sl["preprocess_launches"],
+        "launches_train": tr["preprocess_launches"],
+        "launches_guided_train": guided["preprocess_launches"],
+        "launches_dreamer": dreamer["preprocess_launches"],
+        "main_path_launches": {path: {"fwd": f, "bwd": b}
+                               for path, (f, b) in PREP_PER_CALL.items()},
+        "max_abs_err": max(max(r["max_abs_err"].values()) for r in prep_kernel.values()),
+        "max_rel_err": max(max(r["max_rel_err"].values()) for r in prep_kernel.values()),
+        "grad_max_rel_l2": max(max(r["grad_rel_l2"].values()) for r in prep_kernel.values()),
+        "ms": pk["ms"],
+        "plain_ms": pk["plain_ms"],
+        "bound_ms": pk["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "device_ms": pk["device_ms"],
+        "bwd_device_ms": pk["bwd_device_ms"],
+        "bwd_bound_ms": pk["bwd_bound_ms"],
+        "N": PREP_POINTS[0],
+        **{f"N{n}": {k: prep_kernel[n][k] for k in prep_keys} for n in PREP_POINTS[1:]},
+        "dreamer": {k: prep_kernel["dreamer"][k] for k in prep_keys},
+    }
     # The same numbers under shorter names.
-    for entry in (fwd, bwd, tiles, hashk):
+    for entry in (fwd, bwd, tiles, hashk, prepk):
         entry.update(max_err=entry["max_abs_err"], kernel_ms=entry["ms"])
     WALL_S["total after imports"] = time.perf_counter() - T_START
     print("[time] wall s per phase: " + ", ".join(f"{k} {v:.2f}" for k, v in WALL_S.items()))
     new_s = sum(v for k, v in WALL_S.items() if k.startswith("parallel"))
     print(f"[time] the [parallel] phase: {new_s:.2f} s")
     report = {"card": info, "ptxas": ptxas, "kernels": comp, "kernels_bwd": comp_bwd,
-              "kernels_tiles": comp_tiles, "hash_encode": hash_kernel, "slice": sl,
+              "kernels_tiles": comp_tiles, "hash_encode": hash_kernel,
+              "preprocess_kernel": prep_kernel, "slice": sl,
               "tile_lists": tl, "oracle_probe": probe,
               "export_full": export_full, "training": tr, "image_prompt": image_prompt,
               "guided_training": guided, "cli": cli, "real_capture": real,
@@ -4087,7 +4282,7 @@ def main():
         json.dump(report, f, indent=1)
 
     print(info["nvidia_smi"])
-    print(json.dumps({"kernels": [fwd, bwd, tiles, hashk]}))
+    print(json.dumps({"kernels": [fwd, bwd, tiles, hashk, prepk]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": info["kind"], "count": info["count"]}}))
 

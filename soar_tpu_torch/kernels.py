@@ -53,6 +53,11 @@ SOURCES = {
         # dtype, stream
         [_P] * 6 + [_I] * 5 + [_P],
     ),
+    "preprocess": (
+        "csrc/preprocess.cu",
+        # args (struct Args *), flags, backward, stream
+        [_P, _I, _I, _P],
+    ),
 }
 
 NVCC_FLAGS = [

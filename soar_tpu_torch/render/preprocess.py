@@ -3,14 +3,26 @@
 culling as a validity mask, view-space normals, EWA 3D->2D covariance with
 the 0.3 low-pass, screen radius, and the per-pixel-depth local homography
 ``jinv`` (``cuda_rasterizer/forward.cu:204-385``, ``auxiliary.h:291-397``).
+
+:func:`preprocess` on CUDA launches ``csrc/preprocess.cu`` (the forward, and
+the means', quaternions' and scales' gradients in its backward); on the CPU
+it runs the plain PyTorch version, :func:`preprocess_plain`, which is also
+what the kernel is held against.  A CUDA call the kernel is not built for
+(another dtype, an input whose rows are not contiguous, a camera that needs
+a gradient, ...) raises NotImplementedError: there is no plain path on the
+card.  ``preprocess.kernel`` and ``preprocess.kernel_bwd`` count the
+kernel's forward and backward launches, and ``preprocess.eager`` the plain
+calls, since import.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import ctypes
+from typing import Optional, Tuple
 
 import torch
 
+from .. import kernels
 from ..core import spans
 from ..core.camera import Camera, focal_from_fov, ndc2pix
 from ..core.transforms import quat_to_rotmat
@@ -102,13 +114,13 @@ def _local_homo(
     return jinv, grazing
 
 
-@spans.spanned("soar.raster.preprocess")
-def preprocess(
+def preprocess_plain(
     g: GaussianInputs,
     camera: Camera,
     image_size: Tuple[int, int],
     cfg: RasterConfig,
 ) -> Preprocessed:
+    """:func:`preprocess` in plain PyTorch, on any device."""
     H, W = image_size
     fx = focal_from_fov(camera.fovx, W)
     fy = focal_from_fov(camera.fovy, H)
@@ -200,3 +212,194 @@ def preprocess(
         colors=g.colors,
         opacities=g.opacities,
     )
+
+
+# Flags of the kernel's variants (csrc/preprocess.cu kSurface, kPerpix,
+# kFront).
+FLAGS = {"surface": 1, "perpix_depth": 2, "render_front": 4}
+_P, _LL, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+
+
+class _Args(ctypes.Structure):
+    """csrc/preprocess.cu's ``PreprocessArgs``, field for field."""
+
+    _fields_ = (
+        [(n, _P) for n in ("means", "quats", "scales", "fovx", "fovy", "w2c", "full_proj",
+                           "prcp", "valid", "xy", "depth", "conic", "radius", "normal",
+                           "view_dot", "jinv", "g_xy", "g_depth", "g_conic", "g_normal",
+                           "g_view_dot", "g_jinv", "g_means", "g_quats", "g_scales")]
+        + [(n, _LL) for n in ("s_means", "s_quats", "s_scales", "s_gxy", "s_gdepth",
+                              "s_gconic", "s_gnormal", "s_gview_dot", "s_gjinv")]
+        + [(n, _I) for n in ("N", "W", "H")]
+        + [(n, _F) for n in ("near_z", "low_pass", "scale_modifier", "lo_x", "hi_x", "lo_y",
+                             "hi_y")]
+    )
+
+
+# The outputs the kernel writes, in its Args' order, with their widths.
+_OUTPUTS = (("xy", 2), ("depth", 1), ("conic", 3), ("normal", 3), ("view_dot", 1),
+            ("jinv", 10))
+
+
+def launch_flags(cfg: RasterConfig) -> int:
+    """The kernel variant of ``cfg``: per-pixel depth and render_front act
+    only on surfels, so without ``surface`` it is the one volume kernel."""
+    if not cfg.surface:
+        return 0
+    return sum(bit for name, bit in FLAGS.items() if getattr(cfg, name))
+
+
+def refusal(g: GaussianInputs, camera: Camera) -> Optional[str]:
+    """What in a CUDA call's tensors the kernel is not built for, or None:
+    float32 means [N, 3], quaternions [N, 4] and scales [N, 3] on one device,
+    each row's floats contiguous; a float32 camera on that device whose
+    tensors are contiguous and need no gradient (the kernel gives them
+    none)."""
+    dev = g.means3d.device
+    cam = (camera.fovx, camera.fovy, camera.w2c, camera.full_proj, camera.prcppoint)
+    for name, t, width in (("means3d", g.means3d, 3), ("quats", g.quats, 4),
+                           ("scales", g.scales, 3)):
+        if t.dtype != torch.float32:
+            return f"{t.dtype} {name} (it takes float32)"
+        if t.device != dev:
+            return f"{name} on {t.device} with means3d on {dev}"
+        if t.dim() != 2 or t.shape != (g.means3d.shape[0], width):
+            return f"{name} of shape {tuple(t.shape)}"
+        if t.shape[0] > 1 and t.stride(1) != 1:
+            return f"{name} whose rows are not contiguous"
+    if g.means3d.shape[0] >= 2**31 // 10:
+        return f"{g.means3d.shape[0]} surfels: the outputs' indices pass 32 bits"
+    for name, t in zip(("fovx", "fovy", "w2c", "full_proj", "prcppoint"), cam):
+        if t.dtype != torch.float32 or t.device != dev or not t.is_contiguous():
+            return f"a camera {name} that is not a contiguous float32 tensor on {dev}"
+        if torch.is_grad_enabled() and t.requires_grad:
+            return f"a camera {name} that needs a gradient"
+    return None
+
+
+def _ptr(t: Optional[torch.Tensor]) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def _row_stride(t: Optional[torch.Tensor]) -> int:
+    """Floats from one surfel's row to the next (0 for a broadcast row)."""
+    return 0 if t is None else t.stride(0)
+
+
+def _launch(args: _Args, flags: int, backward: bool, device) -> None:
+    """csrc/preprocess.cu on the current stream, counted in
+    ``preprocess.kernel`` / ``preprocess.kernel_bwd``."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = kernels.load("preprocess").preprocess(ctypes.byref(args), flags, int(backward),
+                                                stream)
+    if err != 0:
+        raise RuntimeError(f"preprocess kernel launch failed: CUDA error {err}")
+    if backward:
+        preprocess.kernel_bwd += 1
+    else:
+        preprocess.kernel += 1
+
+
+def _args(means, quats, scales, cam, image_size, cfg) -> _Args:
+    H, W = image_size
+    fovx, fovy, w2c, full_proj, prcp = cam
+    # The frustum test's bounds as the plain chain compares them: Python
+    # floats taken to float32.
+    ex, ey = 0.2 * W, 0.2 * H
+    return _Args(
+        means=_ptr(means), quats=_ptr(quats), scales=_ptr(scales), fovx=_ptr(fovx),
+        fovy=_ptr(fovy), w2c=_ptr(w2c), full_proj=_ptr(full_proj), prcp=_ptr(prcp),
+        s_means=_row_stride(means), s_quats=_row_stride(quats), s_scales=_row_stride(scales),
+        N=means.shape[0], W=W, H=H, near_z=cfg.near, low_pass=cfg.low_pass,
+        scale_modifier=cfg.scale_modifier, lo_x=-ex, hi_x=W + ex, lo_y=-ey, hi_y=H + ey)
+
+
+def forward_args(means, quats, scales, cam, image_size, cfg):
+    """The forward's launch structure and the outputs it writes, allocated:
+    ``(args, (valid, xy, depth, conic, radius, normal, view_dot, jinv))``."""
+    N, dev = means.shape[0], means.device
+    args = _args(means, quats, scales, cam, image_size, cfg)
+    valid = torch.empty((N,), dtype=torch.bool, device=dev)
+    radius = torch.empty((N,), dtype=torch.float32, device=dev)
+    outs = {name: torch.empty((N, w) if w > 1 else (N,), dtype=torch.float32, device=dev)
+            for name, w in _OUTPUTS}
+    args.valid, args.radius = _ptr(valid), _ptr(radius)
+    for name, t in outs.items():
+        setattr(args, name, _ptr(t))
+    return args, (valid, outs["xy"], outs["depth"], outs["conic"], radius, outs["normal"],
+                  outs["view_dot"], outs["jinv"])
+
+
+def backward_args(means, quats, scales, cam, image_size, cfg, cotangents, wanted):
+    """The backward's launch structure for the cotangents of (xy, depth,
+    conic, normal, view_dot, jinv), each None for zero, and the gradients of
+    the ``wanted`` inputs it writes, allocated: ``(args, [g_means, g_quats,
+    g_scales])`` with None for an input not wanted."""
+    args = _args(means, quats, scales, cam, image_size, cfg)
+    for (name, _), t in zip(_OUTPUTS, cotangents):
+        if t is not None and t.dim() == 2 and t.stride(1) != 1:
+            t = t.contiguous()
+        setattr(args, "g_" + name, _ptr(t))
+        setattr(args, "s_g" + name, _row_stride(t))
+        # The launch reads the cotangent's memory: keep it alive with args.
+        setattr(args, "_keep_" + name, t)
+    grads = [torch.empty_like(x, memory_format=torch.contiguous_format) if w else None
+             for x, w in zip((means, quats, scales), wanted)]
+    args.g_means, args.g_quats, args.g_scales = (_ptr(t) for t in grads)
+    return args, grads
+
+
+class _Preprocess(torch.autograd.Function):
+    """The kernel pair as one differentiable op of the means, quaternions and
+    scales; the camera is read, never differentiated."""
+
+    @staticmethod
+    def forward(ctx, means, quats, scales, fovx, fovy, w2c, full_proj, prcp, image_size, cfg):
+        cam = (fovx, fovy, w2c, full_proj, prcp)
+        args, outs = forward_args(means, quats, scales, cam, image_size, cfg)
+        _launch(args, launch_flags(cfg), False, means.device)
+        ctx.save_for_backward(means, quats, scales, *cam)
+        ctx.image_size, ctx.cfg = image_size, cfg
+        ctx.mark_non_differentiable(outs[0], outs[4])  # valid, radius
+        ctx.set_materialize_grads(False)
+        return outs
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, _valid, g_xy, g_depth, g_conic, _radius, g_normal, g_view_dot, g_jinv):
+        means, quats, scales, *cam = ctx.saved_tensors
+        args, grads = backward_args(means, quats, scales, cam, ctx.image_size, ctx.cfg,
+                                    (g_xy, g_depth, g_conic, g_normal, g_view_dot, g_jinv),
+                                    ctx.needs_input_grad[:3])
+        _launch(args, launch_flags(ctx.cfg), True, means.device)
+        return (*grads, None, None, None, None, None, None, None)
+
+
+@spans.spanned("soar.raster.preprocess")
+def preprocess(
+    g: GaussianInputs,
+    camera: Camera,
+    image_size: Tuple[int, int],
+    cfg: RasterConfig,
+) -> Preprocessed:
+    """The per-surfel screen-space quantities of one view.  On CUDA the
+    kernel computes them, and its backward gives the means', quaternions'
+    and scales' gradients; a CUDA call it is not built for raises
+    NotImplementedError."""
+    if not g.means3d.is_cuda:
+        preprocess.eager += 1
+        return preprocess_plain(g, camera, image_size, cfg)
+    why = refusal(g, camera)
+    if why is not None:
+        raise NotImplementedError(f"preprocess's CUDA kernel is not built for {why}")
+    H, W = image_size
+    valid, xy, depth, conic, radius, normal, view_dot, jinv = _Preprocess.apply(
+        g.means3d, g.quats, g.scales, camera.fovx, camera.fovy, camera.w2c,
+        camera.full_proj, camera.prcppoint, (int(H), int(W)), cfg)
+    return Preprocessed(valid=valid, xy=xy, depth=depth, conic=conic, radius=radius,
+                        normal_view=normal, view_dot=view_dot, jinv=jinv, colors=g.colors,
+                        opacities=g.opacities)
+
+
+# Kernel launches (forward, backward) and plain calls since import.
+preprocess.kernel = preprocess.kernel_bwd = preprocess.eager = 0

@@ -47,9 +47,11 @@ def test_kernel_library_named_by_source_hash(monkeypatch):
         # pointer more (three cotangents in, gfeat out); the tile-list walk:
         # 10 inputs and 4 outputs, the float lists' strides, 6 ints, 3
         # floats, the stream; the hash encoding: 6 pointers (forward's and
-        # backward's), 5 ints, the stream.
+        # backward's), 5 ints, the stream; the preprocess: the launch
+        # structure, 2 ints, the stream.
         assert len(argtypes) == {"composite_fwd": 13, "composite_bwd": 14,
-                                 "composite_tiles": 25, "hash_encode": 12}[name]
+                                 "composite_tiles": 25, "hash_encode": 12,
+                                 "preprocess": 4}[name]
         # Other nvcc flags name another library: a stale build is not reused.
         monkeypatch.setattr(kernels, "NVCC_FLAGS", [*kernels.NVCC_FLAGS, "-lineinfo"])
         assert kernels.library_path(name) != path

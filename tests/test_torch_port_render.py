@@ -1,6 +1,9 @@
 """Parity of the port's render stack with soar_tpu: tile grid, preprocess,
 binning and sort, the composite (plain version and kernel wrapper),
-rasterize / rasterize_with_occ and the post ops.
+rasterize / rasterize_with_occ and the post ops.  ``tests/data/preprocess_jax.npz``
+records soar_tpu's preprocess, forward and gradients, for the port's CUDA
+kernel (tests/test_torch_port_preprocess_kernel.py); ``python
+tests/test_torch_port_render.py`` writes it, and a test here checks it.
 
 Tolerances:
 - integer outputs (sort order, tile ranges, overflow canaries, culling
@@ -12,6 +15,8 @@ Tolerances:
   T < 1e-4 early stop for a pixel, the pixel's outputs differ by up to one
   splat's weight.  Such pixels are counted and held to a stated share.
 """
+
+import os
 
 import jax
 import jax.numpy as jnp
@@ -36,7 +41,23 @@ from soar_tpu_torch.render import preprocess as tpre
 from soar_tpu_torch.render import tiled as ttiled
 from soar_tpu_torch.render import tilegrid as ttg
 from soar_tpu_torch.render import types as ttypes
-from torch_port_helpers import assert_close, assert_close_share, make_scene, n, t
+from torch_port_helpers import (
+    PREP_CAMERA,
+    PREP_FIELDS,
+    PREP_FOV,
+    PREP_JAX_CASES,
+    PREP_JAX_FILE,
+    PREP_PRCP,
+    PREP_SIZE,
+    assert_close,
+    assert_close_share,
+    assert_preprocess_matches_record,
+    make_scene,
+    n,
+    prep_jax_case,
+    prep_masked_cot,
+    t,
+)
 
 
 # ------------------------------------------------------------------ tile grid
@@ -259,6 +280,70 @@ def test_preprocess_gradient_is_finite_with_a_splat_on_the_camera_plane():
     assert_close(m.grad[2:], np.asarray(jgrad)[2:], 1e-4, 1e-4)
 
 
+def _jax_preprocess_case(case):
+    """soar_tpu's preprocess of ``prep_jax_case``'s surfels under
+    ``PREP_JAX_CASES[case]``: its camera's arrays, the outputs, and jax.grad
+    of sum(output * cotangent), the cotangents zero on the culled surfels,
+    for the means, quaternions and scales (numpy, keyed as the file is)."""
+    means, quats, scales, cot = prep_jax_case()
+    N = means.shape[0]
+    cam = jcam.camera_from_c2w(jnp.eye(4), jnp.asarray(PREP_FOV, jnp.float32),
+                               jnp.asarray(PREP_FOV, jnp.float32),
+                               prcppoint=jnp.asarray(PREP_PRCP, jnp.float32))
+    cfg = jtypes.RasterConfig(**PREP_JAX_CASES[case])
+    rest = (jnp.ones((N,)), jnp.zeros((N, 3)))
+
+    def run(m, q, s):
+        return jpre.preprocess(jtypes.GaussianInputs(m, q, s, *rest), cam, PREP_SIZE, cfg)
+
+    pre = run(*(jnp.asarray(a) for a in (means, quats, scales)))
+    masked = prep_masked_cot(cot, n(pre.valid))
+
+    def loss(m, q, s):
+        p = run(m, q, s)
+        return sum(jnp.sum(getattr(p, f) * masked[f]) for f in PREP_FIELDS)
+
+    grads = jax.grad(loss, argnums=(0, 1, 2))(*(jnp.asarray(a) for a in (means, quats, scales)))
+    out = {f"camera_{k}": n(getattr(cam, k)) for k in PREP_CAMERA}
+    out.update({f"{case}_{f}": n(getattr(pre, f)) for f in PREP_FIELDS + ("valid", "radius")})
+    out.update({f"{case}_grad_{k}": n(g) for k, g in zip(("means3d", "quats", "scales"), grads)})
+    return out
+
+
+def record_jax_preprocess(path=PREP_JAX_FILE):
+    """Writes soar_tpu's preprocess of the ``PREP_JAX_CASES`` to ``path``."""
+    arrays = {}
+    for case in PREP_JAX_CASES:
+        arrays.update(_jax_preprocess_case(case))
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    np.savez_compressed(path, **arrays)
+
+
+@pytest.mark.parametrize("case", list(PREP_JAX_CASES))
+def test_recorded_jax_preprocess_is_soar_tpus_and_the_ports(case):
+    """The file the kernel's card tests read holds what soar_tpu gives now,
+    and the port's plain path on the CPU matches it: the forward, and the
+    means', quaternions' and scales' gradients against jax.grad."""
+    want = _jax_preprocess_case(case)
+    rec = np.load(PREP_JAX_FILE)
+    for k, a in want.items():
+        np.testing.assert_allclose(rec[k], a, rtol=1e-6, atol=1e-6, err_msg=k)
+    valid = rec[f"{case}_valid"]
+    assert not valid[:3].any() and valid[3:9].any() and 0.3 * len(valid) < valid.sum()
+    assert not np.isfinite(rec[f"{case}_grad_means3d"][0]).all()  # the JAX package's NaN
+    means, quats, scales, cot = prep_jax_case()
+    cam = tcam.Camera(*(t(rec[f"camera_{k}"]) for k in PREP_CAMERA))
+    leaves = [t(a).requires_grad_() for a in (means, quats, scales)]
+    g = ttypes.GaussianInputs(*leaves, torch.ones(len(means)), torch.zeros(len(means), 3))
+    pre = tpre.preprocess_plain(g, cam, PREP_SIZE, ttypes.RasterConfig(**PREP_JAX_CASES[case]))
+    masked = prep_masked_cot(cot, valid)
+    loss = sum((getattr(pre, f) * t(masked[f])).sum() for f in PREP_FIELDS
+               if getattr(pre, f).requires_grad)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if d is None else d for x, d in zip(leaves, grads)]
+    assert_preprocess_matches_record(pre, grads, rec, case, case)
+
+
 # --------------------------------------------------------------- rasterize
 
 
@@ -305,3 +390,8 @@ def test_postprocess_matches_jax():
                  jpost.depth2normal(jnp.asarray(depth), jnp.asarray(mask), jc, (H, W)), 1e-5)
     assert_close(tpost.normal2curv(t(normal), t(mask)),
                  jpost.normal2curv(jnp.asarray(normal), jnp.asarray(mask)), 1e-5)
+
+
+if __name__ == "__main__":
+    record_jax_preprocess()
+    print(f"wrote {PREP_JAX_FILE}")

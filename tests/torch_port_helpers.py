@@ -139,6 +139,107 @@ def hash_jax_case(mode, dtype):
     return grid, table, pos, cot
 
 
+# soar_tpu's surfel preprocess recorded on the CPU (its outputs, and
+# jax.grad of a cotangent-weighted sum of them for the means, quaternions
+# and scales), so that the port's CUDA kernel can be held against it on a
+# card where JAX is not installed.  ``python tests/test_torch_port_render.py``
+# writes the file, and test_torch_port_render.py checks it against soar_tpu.
+PREP_JAX_FILE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                             "preprocess_jax.npz")
+# RasterConfig keywords of each recorded case: the SOAR cells' surfels with
+# per-pixel depth, the front-face cull, surfels without per-pixel depth, and
+# the dreamer's volume Gaussians.
+PREP_JAX_CASES = {
+    "default": {},
+    "front": {"render_front": True},
+    "no_perpix": {"perpix_depth": False},
+    "dreamer": {"surface": False, "perpix_depth": False},
+}
+PREP_FIELDS = ("xy", "depth", "conic", "normal_view", "view_dot", "jinv")
+PREP_CAMERA = ("fovx", "fovy", "w2c", "full_proj", "campos", "prcppoint")
+# The recorded camera: c2w the identity (view z = -world z), fovx = fovy,
+# an off-centre principal point; the image is (H, W).
+PREP_FOV, PREP_PRCP, PREP_SIZE = 0.8, (0.47, 0.53), (96, 80)
+# Forward: float fields within float32 round-off of the chain (each entry
+# to PREP_RTOL of its column's largest magnitude, the conic's times its
+# conditioning (a c + b^2) / det); valid and radius equal.  Gradients: each
+# input's relative L2 within PREP_GRAD_RTOL, and each entry within
+# PREP_GRAD_RTOL of its column's largest magnitude times the conditioning.
+PREP_RTOL, PREP_GRAD_RTOL = 1e-5, 1e-4
+
+
+def prep_jax_case():
+    """The recorded surfels and cotangents (numpy float32): ``means`` [600,
+    3], unit ``quats`` [600, 4], ``scales`` [600, 3] and one cotangent a
+    field, ``cot[field]``.  Most surfels sit 1 to 4 in front of the camera,
+    some beyond the frustum's border; row 0 is on the camera's plane, row 1
+    in front of the near plane, row 2 behind the camera, and rows 3-8 face
+    the camera beyond the EWA clamp's 1.3 tan(fov / 2) but inside the
+    border."""
+    N = 600
+    rng = np.random.RandomState(41)
+    tan = np.tan(PREP_FOV / 2)
+    z = rng.uniform(1.0, 4.0, N)
+    lateral = rng.uniform(-1.5, 1.5, (N, 2)) * (z * tan)[:, None]
+    z[0:3] = (0.0, 0.05, -1.0)
+    lateral[0:3] = (0.2, -0.1)
+    k = np.arange(3, 9)
+    lateral[k, 0] = np.where(k % 2 == 0, 1.35, -1.35) * z[k] * tan
+    lateral[k, 1] = 0.2 * z[k]
+    means = np.stack([lateral[:, 0], -lateral[:, 1], -z], -1).astype(np.float32)
+    quats = rng.standard_normal((N, 4))
+    quats[3:9] = (1.0, 0.1, -0.1, 0.05)  # facing the camera
+    quats = (quats / np.linalg.norm(quats, axis=-1, keepdims=True)).astype(np.float32)
+    scales = np.exp(np.log(0.03) + 0.5 * rng.standard_normal((N, 3))).astype(np.float32)
+    widths = {"xy": 2, "depth": 1, "conic": 3, "normal_view": 3, "view_dot": 1, "jinv": 10}
+    cot = {f: rng.standard_normal((N, w) if w > 1 else (N,)).astype(np.float32)
+           for f, w in widths.items()}
+    return means, quats, scales, cot
+
+
+def prep_masked_cot(cot, valid):
+    """The cotangents zero on the culled surfels, as the renderer's gathers
+    hand them back."""
+    valid = np.asarray(valid)
+    return {f: c * valid.reshape(-1, *([1] * (c.ndim - 1))) for f, c in cot.items()}
+
+
+def prep_conditioning(conic):
+    """(a c + b^2) / det of each surfel's cov2d, from its conic, at least 1."""
+    c0, c1, c2 = (np.asarray(conic, np.float64)[:, k] for k in range(3))
+    with np.errstate(divide="ignore", invalid="ignore"):
+        cond = (c0 * c2 + c1 * c1) / np.abs(c0 * c2 - c1 * c1)
+    return np.maximum(np.nan_to_num(cond, nan=1.0, posinf=1.0), 1.0)
+
+
+def assert_preprocess_matches_record(pre, grads, rec, case, msg=""):
+    """A port's ``Preprocessed`` and its (means, quats, scales) gradients
+    for ``prep_masked_cot`` against soar_tpu's as ``rec`` holds them for
+    ``case``: the tolerances of ``PREP_RTOL`` and ``PREP_GRAD_RTOL``.  A
+    culled surfel's gradient rows are 0 (soar_tpu's may be NaN there: at
+    view z = 0 it divides by the depth)."""
+    key = case + "_"
+    valid = rec[key + "valid"]
+    np.testing.assert_array_equal(n(pre.valid), valid, err_msg=f"{msg} valid")
+    np.testing.assert_array_equal(n(pre.radius)[valid], rec[key + "radius"][valid],
+                                  err_msg=f"{msg} radius")
+    cond = prep_conditioning(rec[key + "conic"][valid])
+    for f in PREP_FIELDS:
+        got, want = n(getattr(pre, f))[valid], rec[key + f][valid]
+        scale = np.maximum(np.abs(want).max(0), 1e-30)
+        tol = PREP_RTOL * scale * (cond[:, None] if f == "conic" else 1.0)
+        err = np.abs(got - want)
+        assert np.all(err <= tol), f"{msg} {f}: {float((err / scale).max()):.3g} of its scale"
+    for name, got in zip(("means3d", "quats", "scales"), grads):
+        got, want = n(got), rec[key + "grad_" + name]
+        assert np.isfinite(got).all() and not np.any(got[~valid]), f"{msg} {name} on culled"
+        got, want = got[valid], want[valid]
+        rel = float(np.linalg.norm(got - want) / max(np.linalg.norm(want), 1e-30))
+        assert rel <= PREP_GRAD_RTOL, f"{msg} {name}: relative L2 {rel:.3g}"
+        tol = PREP_GRAD_RTOL * np.abs(want).max(0) * cond[:, None]
+        assert np.all(np.abs(got - want) <= tol), f"{msg} {name}: an entry beyond"
+
+
 def assert_table_grad_close(got, idx, val, absval, dtype, msg=""):
     """A table's gradient ``got`` (any shape) against a reference given at
     its flat entries ``idx`` (every entry a cotangent reaches): the value
